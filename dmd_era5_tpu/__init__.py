@@ -1,7 +1,7 @@
-"""dmd-era5-tpu: a TPU-native spatiotemporal decomposition engine.
+"""dmd-era5-tpu: a JAX spatiotemporal decomposition engine.
 
 Public API parity with the reference package facade
-(/root/reference/src/dmd_era5/__init__.py:9-39) plus the TPU-native
+(/root/reference/src/dmd_era5/__init__.py:9-39) plus the
 extensions: distributed SVD, optimized DMD, forecasting, and the
 parallelism layer.
 """

@@ -5,7 +5,7 @@ Behavioral parity with the reference parser
 sections, required-field checks, ISO-8601 datetimes, the ``h/d/w/m/y``
 delta-time grammar, time-range sanity checks (including no-future-start),
 variable/level whitelist expansion, derived artifact names, and the
-SVD-specific parameter checks.  Extended with optional TPU fields
+SVD-specific parameter checks.  Extended with optional execution fields
 (``precision``, ``mesh_shape``) that default sensibly when absent.
 
 Artifacts are HDF5 (the reference writes NetCDF4; NetCDF4 is itself HDF5
@@ -54,7 +54,7 @@ _DMD_REQUIRED = _SVD_REQUIRED + ("dmd_rank", "optimized")
 SUPPORTED_SVD_TYPES = ("standard", "randomized")
 SUPPORTED_PRECISIONS = ("float32", "bfloat16")
 
-# Decomposition execution backends (a TPU-scale extension of the
+# Decomposition execution backends (a device-scale extension of the
 # reference's svd_type dispatcher, era5_svd.py:230-263):
 #   auto     - pick per config/mesh (hankel operators for d>1 randomized,
 #              grid2d on a time-sharded mesh, else inmem)
@@ -469,7 +469,7 @@ def _parse_dmd_fields(config: dict, parsed: dict, logger: Logger | None) -> None
 
 
 def _parse_tpu_fields(config: dict, parsed: dict, logger: Logger | None) -> None:
-    """Optional TPU-execution fields with defaults (new vs. the reference)."""
+    """Optional execution fields with defaults (new vs. the reference)."""
     precision = config.get("precision", "float32")
     if precision not in SUPPORTED_PRECISIONS:
         _fail(

@@ -4,7 +4,7 @@ Behavioral parity with the reference logger
 (/root/reference/src/dmd_era5/logger.py:7-46): named loggers writing to
 ``<root>/logs/<file>.log`` with the directory auto-created, handlers reset
 on re-setup, and a ``log_and_print`` helper that mirrors messages to
-stdout.  Extended for the TPU build with the process index in the log
+stdout.  Extended with the process index in the log
 format so multi-host runs produce attributable lines.
 """
 

@@ -47,3 +47,24 @@ def logs_dir() -> Path:
     d = repo_root() / "logs"
     d.mkdir(parents=True, exist_ok=True)
     return d
+
+
+COMPILE_CACHE_ENV_VAR = "JAX_COMPILATION_CACHE_DIR"
+
+
+def enable_compile_cache() -> Path | None:
+    """Turn on JAX's persistent compilation cache for a script run.
+
+    When ``JAX_COMPILATION_CACHE_DIR`` is set, JAX reads it itself and
+    nothing is set here (returns None).  Otherwise the cache lives at
+    ``.jax_cache`` in the checkout, a fixed path (the path is part of
+    the cache key, so a moving directory never hits) that ``.gitignore``
+    lists.
+    """
+    if os.environ.get(COMPILE_CACHE_ENV_VAR):
+        return None
+    import jax
+
+    cache = Path(__file__).resolve().parents[2] / ".jax_cache"
+    jax.config.update("jax_compilation_cache_dir", str(cache))
+    return cache

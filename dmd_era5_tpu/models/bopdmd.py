@@ -9,7 +9,7 @@ snapshot subsets, then report the trial statistics — mean eigenvalues /
 modes / amplitudes plus their standard deviations, which quantify the
 uncertainty of every spectral quantity.
 
-TPU-first shape: ALL trials run lock-step in ONE jit — the bag of
+Shape: ALL trials run lock-step in ONE jit — the bag of
 variable-projection solves is a vmapped LM (``varpro_lm_batched`` with
 per-member sample times) over the ``data`` axis, and the mode lifts are
 two batched skinny GEMMs.  The per-trial work never touches the S-sized

@@ -70,10 +70,9 @@ def dmd_from_svd(
     ut_x2 = jnp.matmul(u.T, x2, precision=HIGHEST)  # (r, T-1)
     atilde = jnp.matmul(ut_x2, v.T * s_inv[None, :], precision=HIGHEST)
 
-    # r x r nonsymmetric eig: no TPU lowering exists, so the replicated
-    # small problem goes through a host callback; the eager path returns
-    # HOST complex arrays (complex device transfers are unsupported on
-    # some TPU backends).
+    # r x r nonsymmetric eig: the replicated small problem goes through
+    # a host callback (utils.linalg.eig_host); the eager path returns
+    # HOST complex arrays.
     eigvals, w = eig_host(atilde)
     eigvals = np.asarray(eigvals)
     w = np.asarray(w)

@@ -12,9 +12,9 @@ prescribed boundary conditions) — an extension of the plain
 decomposition the reference pipeline feeds
 (/root/reference/README.md:85,139).
 
-TPU-first shape: both truncated SVDs (the stacked [X1; U] input basis
+Shape: both truncated SVDs (the stacked [X1; U] input basis
 and the X2 output basis) go through the Gram-route exact SVD
-(ops.svd.exact_truncated_svd_gram — Pallas split-Gram kernels on TPU,
+(ops.svd.exact_truncated_svd_gram,
 mesh/psum-aware for space-sharded snapshots); every S-sized contraction
 is a skinny GEMM, the reduced operators live in the (r, r)/(r, q) space,
 and the only host work is the r x r nonsymmetric eigendecomposition.
@@ -116,7 +116,7 @@ def fit_dmdc(
 
     x1 = x[:, :-1]
     x2 = x[:, 1:]
-    # Row-balance the control block before stacking (ADVICE r4): the
+    # Row-balance the control block before stacking (review r4): the
     # conditioning cutoff below works on the stacked SVD's spectrum, so
     # when state magnitudes dwarf control magnitudes (unstandardized
     # physical units, large leading POD values) the control-subspace
@@ -154,8 +154,8 @@ def fit_dmdc(
     # the balancing so b_red applies to the caller's raw units
     b_red = gamma * _gemm(uh_t_k, ut2.T)  # (r, q)
 
-    # eig of the reduced unforced operator; host callback (no TPU
-    # nonsymmetric-eig lowering), exact modes via the K factor
+    # eig of the reduced unforced operator; host callback
+    # (utils.linalg.eig_host), exact modes via the K factor
     eigvals, w = eig_host(a_red)
     eigvals = np.asarray(eigvals)
     w = np.asarray(w)

@@ -11,12 +11,12 @@ multiscale extension of the single decomposition the reference pipeline
 feeds (/root/reference/README.md:85,139; the reference itself stops at
 one truncated SVD, SURVEY.md fact 2).
 
-TPU-first shape: at level ``l`` the ``2**l`` windows are identical-shape
+Shape: at level ``l`` the ``2**l`` windows are identical-shape
 independent problems, so each level is ONE batched fit — a batched
 Gram-route truncated SVD (batched T_l x T_l ``eigh`` + Rayleigh-Ritz,
 the same route as ops.svd.exact_truncated_svd_gram) and a handful of
 batched skinny GEMMs over the space axis; the only host work is the
-batched r x r nonsymmetric eigendecomposition (no TPU lowering exists)
+batched r x r nonsymmetric eigendecomposition (utils.linalg.eig_host)
 and r x r complex amplitude solves.  The slow/fast split is a BOOLEAN
 MASK folded into the amplitudes, so every shape stays static: no
 data-dependent mode counts anywhere.  The subtraction of the slow part
@@ -25,7 +25,7 @@ is one batched real GEMM — the complex dynamics are folded into a real
 = M Re(W diag(b) e^{omega t}) with M = X2 V S^-1 real).
 
 Unlike the classic host implementation, no level subsamples the data:
-the coarse-level GEMMs are exactly the shapes the MXU wants, so the
+the coarse-level GEMMs are ordinary skinny products, so the
 accuracy-losing stride-``2**(L-l)`` thinning of the original algorithm
 is unnecessary.
 """
@@ -156,9 +156,9 @@ def _level_core(xw: jax.Array, rank: int):
     # s ~ 0; dead directions get a zero inverse.  The cutoff sits at
     # the Gram route's conditioning floor sqrt(eps_f32) ~ 3e-4: the
     # squared-conditioning of the T_l x T_l eigh makes directions below
-    # it numerical junk on TPU, and 1/s would amplify them into the
-    # subtraction (measured: a 1e-6 cutoff passes garbage directions on
-    # the real chip and the residual diverges).
+    # it numerical junk, and 1/s would amplify them into the
+    # subtraction (a 1e-6 cutoff passes garbage directions and the
+    # residual diverges).
     s0 = jnp.maximum(s[..., :1], 1e-30)
     s_inv = jnp.where(s > 1e-3 * s0, 1.0 / jnp.maximum(s, 1e-30), 0.0)
 
@@ -477,7 +477,7 @@ def fit_mrdmd_gram(
 ) -> MrDMDResult:
     """Multiresolution DMD from the T x T Gram of the snapshot matrix.
 
-    The out-of-core raw-data refit (VERDICT r4 item 7).  Key identity:
+    The out-of-core raw-data refit (review r4 item 7).  Key identity:
     the level-``l`` residual is always ``X @ C`` for a small per-window
     time-side map C — level 0 starts at C = I, and each subtraction
     ``R - M K`` with ``M = R[:, 1:] (V S^-1)`` only composes more

@@ -9,7 +9,7 @@ over continuous-time eigenvalues alpha (complex, r of them) with the
 linear coefficients B eliminated by least squares (variable projection),
 minimized by Levenberg-Marquardt.
 
-TPU-first design decisions:
+Design decisions:
 
 - The fit runs in the POD-projected space: with X ~ U S V^T from the
   sharded SVD, the projected data H = (S V)^T is (T, k) — tiny and
@@ -22,7 +22,7 @@ TPU-first design decisions:
   parameters.  2r forward passes over a (T, k) residual is negligible,
   and it is exactly the kind of structured autodiff JAX exists for.
 - Complex solves are reformulated as real block systems
-  (utils.linalg.complex_solve) since TPU has no complex LU; the
+  (utils.linalg.complex_solve), with no complex LU; the
   nonsymmetric eigen-init goes through a host callback (eig_host).
 - The LM loop is a ``lax.while_loop`` with accept/reject damping —
   compiler-friendly control flow, one trace, static shapes.
@@ -138,9 +138,8 @@ def _lm_core(
     lambda_down: float,
     ridge: float,
 ):
-    """The jitted LM engine.  All inputs/outputs are REAL arrays — some
-    TPU backends cannot transfer complex arrays across the host/device
-    boundary, so the complex data is assembled on device from its real
+    """The jitted LM engine.  All inputs/outputs are REAL arrays — no
+    complex array crosses the host/device boundary, so the complex data is assembled on device from its real
     and imaginary parts and decomposed again on the way out."""
     h = h_re + 1j * h_im
     h_norm = jnp.linalg.norm(h)
@@ -186,8 +185,7 @@ def _lm_core(
         def try_body(s):
             lam_try, _, _, _ = s
             a = jtj + lam_try * jnp.diag(diag)
-            # SPD by construction: GEMM-based solve (TPU LU lowers to
-            # sequential sweeps — measured multi-ms even at 2r = 16)
+            # SPD by construction: GEMM-based solve (utils.linalg)
             delta = spd_solve(a, g[:, None])[:, 0]
             theta_try = theta - delta
             r_try = res_norm(theta_try)
@@ -472,8 +470,8 @@ def varpro_lm_checkpointed(
 def _eig_init(z: jax.Array, t, rank: int) -> np.ndarray:
     """Exact-DMD eigenvalue init on the projected data z (k, T).
 
-    Returns HOST complex eigenvalues (complex arrays do not transfer to
-    every TPU backend; the small eigenproblem lives on host anyway).
+    Returns HOST complex eigenvalues (the small eigenproblem lives on
+    host anyway).
     """
     t_host = np.asarray(jax.device_get(t), dtype=np.float64)
     dt = float(t_host[1] - t_host[0])

@@ -123,7 +123,7 @@ class ScoreAccumulator:
     scores bit-for-bit in exact arithmetic (f64 accumulators here make
     the blockwise route at least as accurate as the f32 one-shot).
     This is what lets the DMD/forecast stage score an S = 15.6M-row
-    holdout with O(block) residency (VERDICT r4 item 2) instead of
+    holdout with O(block) residency (review r4 item 2) instead of
     materializing the (S, L) forecast the one-shot functions need.
 
     ACC climatology: pass per-row ``clim_blk`` to :meth:`update`, or

@@ -11,7 +11,7 @@ an operator:
   X[:, j:j+Tout] @ Omega = X @ (Omega zero-shifted by j), so stacking
   the d shifted copies of Omega column-wise turns the whole thing into a
   single wide GEMM X @ W, W (T, d*r) — same FLOPs as the d narrow GEMMs
-  but one HBM read of X and a wider MXU tile.
+  but one read of X and a wider product.
 - project   B = H_d(X)^T-style projection Q^T H_d(X): one pass over X
   computing C = Q'^T X with Q' the d blocks of Q laid side by side,
   then a shifted slice-sum of the small C.
@@ -67,6 +67,27 @@ def stacked_sketch_matrix(omega: jax.Array, d: int, t_cols: int) -> jax.Array:
             jnp.pad(omega, ((j, d - 1 - j), (0, 0)))
         )  # (T, r)
     return jnp.concatenate(blocks, axis=1)  # (T, d*r)
+
+
+@partial(jax.jit, static_argnames=("d",))
+def _lift_delay_major(y_wide: jax.Array, lift: jax.Array, d: int) -> jax.Array:
+    """U = Y lift in the delay-major row layout, f32.
+
+    y_wide (S, d*r) holds delay block j in columns [j*r, (j+1)*r); U row
+    j*S + s is y_wide[s, j*r:(j+1)*r] @ lift.  One program, so the
+    reorder and the f32 conversion of a bf16 Y fuse into one copy.
+    """
+    s_rows, dr = y_wide.shape
+    y = (
+        y_wide.reshape(s_rows, d, dr // d)
+        .transpose(1, 0, 2)
+        .reshape(s_rows * d, dr // d)
+        .astype(jnp.float32)
+    )
+    return jnp.matmul(
+        y, lift, preferred_element_type=jnp.float32,
+        precision=lax.Precision.HIGHEST,
+    )
 
 
 def hankel_sketch(x: jax.Array, omega: jax.Array, d: int) -> jax.Array:
@@ -216,7 +237,7 @@ def _hankel_rand_svd_space_fused_body(
     gemm_dtype,
 ):
     """Fused space-sharded Hankel SVD body: per shard, each power
-    iteration is ONE Pallas pass over the local rows (wide stacked
+    iteration is ONE fused pass over the local rows (wide stacked
     sketch -> y_wide + Gram + projection); only the (r, r) Gram and the
     (r, t_out) projection psum over the axis — the same
     small-factors-only pattern as the sharded fit step."""
@@ -226,7 +247,6 @@ def _hankel_rand_svd_space_fused_body(
     from dmd_era5_tpu.utils.linalg import gram_whiten
 
     hi = lax.Precision.HIGHEST
-    s_loc = x_block.shape[0]
     t_out = t_cols - d + 1
     n_random = omega.shape[1]
     xg = x_block.astype(gemm_dtype)
@@ -258,22 +278,14 @@ def _hankel_rand_svd_space_fused_body(
     z = omega
     for _ in range(max(int(n_iter), 0)):
         _, _, b = fused_pass(z)
-        z = orth_small(b.T)  # (t_out, r) re-orthonormalized (MXU)
+        z = orth_small(b.T)  # (t_out, r) re-orthonormalized
     y_wide, inv_chol, b = fused_pass(z)
 
     u_b, s, vt = jnp.linalg.svd(b, full_matrices=False)
     lift = jnp.matmul(
         inv_chol.T, u_b, preferred_element_type=jnp.float32, precision=hi
     )
-    y = (
-        y_wide.reshape(s_loc, d, n_random)
-        .transpose(1, 0, 2)
-        .reshape(d * s_loc, n_random)
-    )
-    u = jnp.matmul(
-        y.astype(jnp.float32), lift,
-        preferred_element_type=jnp.float32, precision=hi,
-    )
+    u = _lift_delay_major(y_wide, lift, d)
     u, vt = _svd_flip_v_based(u, vt)
     return u[:, :n_components], s[:n_components], vt[:n_components, :]
 
@@ -288,7 +300,8 @@ def hankel_randomized_svd_sharded(
     seed: int | jax.Array = 0,
     axis_name: str = "space",
     qr_method: str | None = None,
-    fused: bool | str = "auto",
+    fused: bool = True,
+    gemm_dtype=jnp.float32,
 ):
     """Space-sharded operator-form randomized SVD of H_d(X).
 
@@ -297,11 +310,11 @@ def hankel_randomized_svd_sharded(
     delay-major rows (block j at rows [j*S, (j+1)*S)) — identical to the
     single-device :func:`hankel_randomized_svd`.
 
-    ``fused``: route each shard through the fused Pallas body (one X
-    read per power iteration, r-sized psums — see
-    :func:`hankel_randomized_svd_fused`); ``"auto"`` picks it whenever
-    the Pallas kernels can run (TPU mesh, or interpret mode on a
-    non-TPU default backend).  bf16 GEMMs on TPU, f32 elsewhere.
+    ``fused``: route each shard through the fused body (one X read per
+    power iteration, r-sized psums — see
+    :func:`hankel_randomized_svd_fused`); ``False`` takes the TSQR body.
+    ``gemm_dtype`` is the fused body's GEMM input dtype (f32
+    accumulation either way), set from the stage's ``precision``.
     """
     from functools import partial as _partial
 
@@ -323,9 +336,6 @@ def hankel_randomized_svd_sharded(
     key = seed if isinstance(seed, jax.Array) else jax.random.key(seed)
     omega = jax.random.normal(key, (t_out, n_random), dtype=jnp.float32)
 
-    mesh_is_tpu = mesh.devices.flat[0].platform == "tpu"
-    if fused == "auto":
-        fused = mesh_is_tpu or jax.default_backend() != "tpu"
     if fused:
         body = _partial(
             _hankel_rand_svd_space_fused_body,
@@ -334,7 +344,7 @@ def hankel_randomized_svd_sharded(
             n_components=n_components,
             n_iter=n_iter,
             axis_name=axis_name,
-            gemm_dtype=jnp.bfloat16 if mesh_is_tpu else jnp.float32,
+            gemm_dtype=gemm_dtype,
         )
     else:
         body = _partial(
@@ -373,7 +383,7 @@ def hankel_randomized_svd_fused(
 
     Same operator-form semantics as :func:`hankel_randomized_svd` (the
     embedded matrix never exists), but each power iteration is ONE
-    Pallas pass over X instead of ~four streaming GEMM/QR passes:
+    fused pass over X instead of ~four streaming GEMM/QR passes:
     ``ops.matmul.sketch_center_gram_project`` with the (T, d*r) stacked
     sketch returns, from a single X read,
 
@@ -389,10 +399,9 @@ def hankel_randomized_svd_fused(
     skinny pass over y_wide.
 
     Defaults are throughput-oriented: bf16 GEMMs (f32 accumulation) and
-    an oversampled, lane-aligned sketch (n_components + 28 = 128 for
-    the standard k=100 — strictly better accuracy than sklearn's +10
-    AND faster kernels).  Set ``gemm_dtype=jnp.float32`` for the
-    full-precision measurement.
+    an oversampled sketch (n_components + 28 = 128 for the standard
+    k=100 — strictly better accuracy than sklearn's +10).  Set
+    ``gemm_dtype=jnp.float32`` for the full-precision measurement.
 
     Returns an ``SVDResult`` with the same embedded row layout as
     :func:`hankel_randomized_svd`.
@@ -442,26 +451,16 @@ def hankel_randomized_svd_fused(
     z = omega
     for _ in range(max(int(n_iter), 0)):
         _, _, b = fused_pass(z)
-        z = orth_small(b.T)  # (t_out, r) re-orthonormalized (MXU)
+        z = orth_small(b.T)  # (t_out, r) re-orthonormalized
     y_wide, inv_chol, b = fused_pass(z)
 
     u_b, s, vt = jnp.linalg.svd(b, full_matrices=False)
     lift = jnp.matmul(
         inv_chol.T, u_b, preferred_element_type=jnp.float32, precision=hi
     )  # (r, r)
-    # U = Q U_b = Y (L^-T U_b): one skinny pass over y_wide, reshaped to
-    # the embedded (d*S, r) row layout on the fly
-    y = (
-        y_wide.reshape(s_rows, d, n_random)
-        .transpose(1, 0, 2)
-        .reshape(d * s_rows, n_random)
-    )
-    u = jnp.matmul(
-        y.astype(jnp.float32),
-        lift,
-        preferred_element_type=jnp.float32,
-        precision=hi,
-    )
+    # U = Q U_b = Y (L^-T U_b): one skinny pass over y_wide, in the
+    # embedded (d*S, r) row layout
+    u = _lift_delay_major(y_wide, lift, d)
     u, vt = _svd_flip_v_based(u, vt)
     return SVDResult(
         u[:, :n_components], s[:n_components], vt[:n_components, :]
@@ -478,12 +477,11 @@ def _hankel_exact_svd_body(
     n_components: int,
     axis_name: str | None,
     gram_precision,
-    use_pallas: bool = True,
 ):
     """Shard-local exact Hankel-operator SVD: two passes over X.
 
-    Pass 1 is the raw T x T Gram (Pallas kernel, psum over the space
-    axis); the EMBEDDED Gram follows for free from the banded identity
+    Pass 1 is the raw T x T Gram (psum over the space axis); the
+    EMBEDDED Gram follows for free from the banded identity
 
         (H_d(X)^T H_d(X))[i, j] = sum_{b=0}^{d-1} G[i+b, j+b]
 
@@ -496,14 +494,13 @@ def _hankel_exact_svd_body(
     (ops/svd.py::_gram_route_core).
     """
     from dmd_era5_tpu.ops.matmul import sketch_center_gram_project
-    from dmd_era5_tpu.ops.svd import raw_gram
+    from dmd_era5_tpu.ops.qr_panel import gram
     from dmd_era5_tpu.utils.linalg import gram_whiten
 
     hi = lax.Precision.HIGHEST
-    s_loc = x_block.shape[0]
     t_out = t_cols - d + 1
 
-    g_raw = raw_gram(x_block, gram_precision, use_pallas)
+    g_raw = gram(x_block, precision=gram_precision)
     if axis_name is not None:
         g_raw = lax.psum(g_raw, axis_name)
 
@@ -512,29 +509,15 @@ def _hankel_exact_svd_body(
         g_h = g_h + g_raw[b : b + t_out, b : b + t_out]
 
     _, vecs = jnp.linalg.eigh(g_h)  # ascending
-    # lane-aligned subspace width (see _gram_route_core)
+    # subspace width rounded up to 128 (see _gram_route_core)
     k_pad = min(-(-n_components // 128) * 128, t_out)
     v_k = vecs[:, ::-1][:, :k_pad]  # (t_out, >=k) exact top subspace
 
     w = stacked_sketch_matrix(v_k, d, t_cols)
-    if use_pallas:
-        y_wide, _, _, g_wide, c_wide = sketch_center_gram_project(
-            x_block, w, center=False
-        )
-        g_y = jnp.einsum("jajb->ab", g_wide.reshape(d, k_pad, d, k_pad))
-    else:  # plain-XLA pass (CPU mesh under a TPU default backend)
-        y_wide = jnp.matmul(
-            x_block, w, preferred_element_type=jnp.float32, precision=hi
-        )
-        y3 = y_wide.reshape(s_loc, d, k_pad)
-        g_y = jnp.einsum(
-            "sja,sjb->ab", y3, y3,
-            preferred_element_type=jnp.float32, precision=hi,
-        )
-        c_wide = jnp.matmul(
-            y_wide.T, x_block,
-            preferred_element_type=jnp.float32, precision=hi,
-        )
+    _, _, _, g_wide, c_wide = sketch_center_gram_project(
+        x_block, w, center=False, emit_yc=False
+    )
+    g_y = jnp.einsum("jajb->ab", g_wide.reshape(d, k_pad, d, k_pad))
     c_blocks = c_wide.reshape(d, k_pad, t_cols)
     c_h = jnp.zeros((k_pad, t_out), jnp.float32)
     for j in range(d):
@@ -552,14 +535,20 @@ def _hankel_exact_svd_body(
         w_wh.T, u_b[:, :n_components],
         preferred_element_type=jnp.float32, precision=hi,
     )
-    y = (
-        y_wide.reshape(s_loc, d, k_pad)
-        .transpose(1, 0, 2)
-        .reshape(d * s_loc, k_pad)
-    )
-    u = jnp.matmul(
-        y.astype(jnp.float32), lift,
-        preferred_element_type=jnp.float32, precision=hi,
+    # U block j = Y_j lift = X (W_j lift): recomputed from X instead of
+    # storing the (S, d*k) sketch, the largest array of the pass
+    u = jnp.concatenate(
+        [
+            jnp.matmul(
+                x_block,
+                jnp.matmul(
+                    w[:, j * k_pad : (j + 1) * k_pad], lift, precision=hi
+                ),
+                preferred_element_type=jnp.float32, precision=hi,
+            )
+            for j in range(d)
+        ],
+        axis=0,
     )
     return u, s[:n_components], vt[:n_components, :]
 
@@ -587,17 +576,15 @@ def hankel_exact_svd(
     [j*S, (j+1)*S)) matching ``apply_delay_embedding``'s contract.
 
     ``gram_precision`` as in :func:`ops.svd.truncated_svd` — the
-    default 2-pass bf16-split Gram's perturbation enters the final
-    triplets quadratically (verified vs HIGHEST: scripts/gram_route_ab.py).
+    default bf16-split Gram's perturbation enters the final triplets
+    quadratically.
     """
-    from dmd_era5_tpu.ops.svd import SVDResult, pallas_ok
+    from dmd_era5_tpu.ops.svd import SVDResult
 
     s_rows, t_cols = x.shape
-    use_pallas = pallas_ok(mesh)
     if mesh is None or mesh.shape.get(axis_name, 1) == 1:
         u, s, vt = _hankel_exact_svd_body(
-            x, d, t_cols, n_components, None, gram_precision,
-            use_pallas=use_pallas,
+            x, d, t_cols, n_components, None, gram_precision
         )
         return SVDResult(u, s, vt)
     n_shards = mesh.shape[axis_name]
@@ -612,7 +599,6 @@ def hankel_exact_svd(
         n_components=n_components,
         axis_name=axis_name,
         gram_precision=gram_precision,
-        use_pallas=use_pallas,
     )
     u_il, s, vt = jax.shard_map(
         body,
@@ -833,7 +819,7 @@ def hankel_sketch_time_sharded(
 
     The sequence-parallel sketch: each shard multiplies its local column
     block against the matching rows of Omega (zero-padded at both ends
-    by d-1), partials all-reduce over ICI.  Replicated (S*d, r) output.
+    by d-1), partials all-reduce over the axis.  Replicated (S*d, r) output.
     """
     t_out, _ = omega.shape
     omega_pad = jnp.pad(omega.astype(jnp.float32), ((d - 1, d - 1), (0, 0)))

@@ -1,20 +1,17 @@
-"""Pallas tiled matmul kernels (MXU-aligned, fp32 accumulation).
+"""The fused ingest pass of the fit step, in plain XLA.
 
-The dense building block mandated by the component inventory
-(SURVEY.md section 2b, "Pallas matmul kernel"): a block-tiled GEMM with
-a VMEM accumulator and bf16-friendly tile shapes (``matmul`` — the
-streamed out-of-core sketch passes run on it), plus the two fused
-production kernels of the fit step: ``sketch_center_gram`` applies the
-rank-1 centering correction in the GEMM epilogue and emits the Gram
-matrix and row stats from the same X read —
+``sketch_center_gram_project`` returns, for a snapshot block X and a
+sketch matrix W, everything the fit step and the Gram-route SVDs read
+from X:
 
-    Yc = (X - mu 1^T) Omega = X Omega - mu (1^T Omega)
+    Yc = (X - mu 1^T) W = X W - mu (1^T W)      (centered sketch)
+    G  = Yc^T Yc,   C = Yc^T X                  (from the STORED Yc)
 
-— and ``project`` accumulates C = Yc^T X in one streaming pass (see
-pipeline/train_step.py for the algebra).
-
-On non-TPU backends the kernels run in interpreter mode (tests); on TPU
-they compile via Mosaic.
+plus the row statistics the loss needs (see pipeline/train_step.py for
+the algebra).  XLA lowers the products to cuBLAS GEMMs and fuses the
+centering epilogue and the row reductions; the one-read bound of this
+pass (X read once, Yc written once) is the target for a hand-written
+kernel (ROADMAP).
 """
 
 from __future__ import annotations
@@ -23,247 +20,85 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-__all__ = [
-    "matmul",
-    "sketch_center_gram",
-    "sketch_center_gram_project",
-    "project",
-]
+__all__ = ["sketch_center_gram_project", "row_contract"]
 
 
-def _interpret() -> bool:
-    return jax.default_backend() != "tpu"
+def _precision(*dtypes):
+    """``HIGHEST`` (full f32, no TF32) unless every operand is bf16.
 
-
-def _dot_precision(*dtypes):
-    """MXU precision for a kernel dot, chosen by operand storage dtype.
-
-    f32 operands need ``HIGHEST`` (the default f32 matmul on TPU is a
-    single bf16 pass whose ~1e-2 error breaks the whitening algebra).
-    bf16 operands must use ``DEFAULT``: the native bf16 x bf16 -> f32
-    MXU pass is already exact for the stored values (Mosaic rejects an
-    fp32 contract precision on bf16 inputs — "Bad lhs type").
+    A bf16 x bf16 product with f32 accumulation is already exact for the
+    stored values, so it takes ``DEFAULT``; an f32 operand would
+    otherwise run in TF32 (~1e-3), which breaks the whitening algebra.
     """
-    if all(jnp.dtype(d) == jnp.float32 for d in dtypes):
-        return jax.lax.Precision.HIGHEST
-    return jax.lax.Precision.DEFAULT
+    if all(jnp.dtype(d) == jnp.bfloat16 for d in dtypes):
+        return jax.lax.Precision.DEFAULT
+    return jax.lax.Precision.HIGHEST
 
 
-def _pad_rows(x: jax.Array, block_m: int) -> tuple[jax.Array, int, int]:
-    """Zero-pad the row axis to a kernel-friendly size.
+# rows per partial product of a contraction over the row axis
+_ROW_BLOCK = 2048
 
-    Zero rows are exactly neutral through the fused algebra: their row
-    stats are zero, the centered sketch rows are zero, and they
-    contribute nothing to Gram or projection accumulators — so callers
-    just slice the row-shaped outputs back.
 
-    Returns (padded x, rows actually used as block_m, original m).
+def _row_block(m: int) -> int:
+    """Rows per partial: m itself when small, else a divisor of m in
+    [_ROW_BLOCK / 2, _ROW_BLOCK] (no padding copy), else ``_ROW_BLOCK``
+    (zero padding)."""
+    if m <= 2 * _ROW_BLOCK:
+        return m
+    for blk in range(_ROW_BLOCK, _ROW_BLOCK // 2 - 1, -1):
+        if m % blk == 0:
+            return blk
+    return _ROW_BLOCK
+
+
+def row_contract(a: jax.Array, b: jax.Array, precision=None) -> jax.Array:
+    """a^T b (contracting the row axis), f32, as a sum of row-block partials.
+
+    The GPU's tensor cores drop low bits as they accumulate, so a bf16
+    product's error grows with the number of rows each output sums in
+    one chain: a bf16 Gram over 2^20 rows measured 5.9e-5 relative error
+    on an H100 (700 W), the same in 16384-row blocks, against ~5e-7 on
+    the CPU and 4e-6 for f32 at HIGHEST.  Partial products over blocks
+    of at most 2048 rows, summed in f32, bound that error.  Zero padding
+    rows are exact no-ops.
     """
-    m = x.shape[0]
-    if m % block_m == 0:
-        return x, block_m, m
-    # pad to a lane/sublane-friendly multiple, then pick the largest
-    # 128-multiple divisor <= block_m so the grid stays coarse
-    m_pad = -(-m // 128) * 128
-    bm = min(block_m, m_pad)
-    while m_pad % bm:
-        bm -= 128
-    if bm <= 0:  # m < 128: single padded block
-        bm = m_pad
-    return jnp.pad(x, ((0, m_pad - m), (0, 0))), bm, m
-
-
-def _matmul_kernel(x_ref, w_ref, out_ref, acc_ref, *, n_k: int):
-    k = pl.program_id(2)
-
-    @pl.when(k == 0)
-    def _():
-        acc_ref[:] = jnp.zeros_like(acc_ref)
-
-    acc_ref[:] += jnp.dot(
-        x_ref[:],
-        w_ref[:],
-        preferred_element_type=jnp.float32,
-        precision=_dot_precision(x_ref.dtype, w_ref.dtype),
+    if a.dtype != b.dtype:
+        a, b = a.astype(jnp.float32), b.astype(jnp.float32)
+    if precision is None:
+        precision = _precision(a.dtype, b.dtype)
+    m = a.shape[0]
+    blk = _row_block(m)
+    if blk == m:
+        return jax.lax.dot_general(
+            a, b, (((0,), (0,)), ((), ())),
+            preferred_element_type=jnp.float32, precision=precision,
+        )
+    pad = -m % blk
+    if pad:
+        a = jnp.pad(a, ((0, pad), (0, 0)))
+        b = jnp.pad(b, ((0, pad), (0, 0)))
+    nb = (m + pad) // blk
+    parts = jax.lax.dot_general(
+        a.reshape(nb, blk, a.shape[1]), b.reshape(nb, blk, b.shape[1]),
+        (((1,), (1,)), ((0,), (0,))),
+        preferred_element_type=jnp.float32, precision=precision,
     )
-
-    @pl.when(k == n_k - 1)
-    def _():
-        out_ref[:] = acc_ref[:].astype(out_ref.dtype)
-
-
-@functools.partial(
-    jax.jit, static_argnames=("block_m", "block_n", "block_k", "out_dtype")
-)
-def matmul(
-    x: jax.Array,
-    w: jax.Array,
-    block_m: int = 512,
-    block_n: int = 128,
-    block_k: int = 512,
-    out_dtype=jnp.float32,
-) -> jax.Array:
-    """Tiled (M, K) @ (K, N) -> (M, N) with fp32 VMEM accumulation.
-
-    Dimensions must be divisible by the block sizes (callers pad; the
-    snapshot-matrix shapes are padded to the mesh anyway).
-    """
-    m, k = x.shape
-    k2, n = w.shape
-    assert k == k2, (x.shape, w.shape)
-    bm, bn, bk = min(block_m, m), min(block_n, n), min(block_k, k)
-    assert m % bm == 0 and n % bn == 0 and k % bk == 0, (
-        f"shape ({m},{k})x({k},{n}) not divisible by blocks ({bm},{bn},{bk})"
-    )
-    n_k = k // bk
-    grid = (m // bm, n // bn, n_k)
-    return pl.pallas_call(
-        functools.partial(_matmul_kernel, n_k=n_k),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((bm, bk), lambda i, j, kk: (i, kk)),
-            pl.BlockSpec((bk, bn), lambda i, j, kk: (kk, j)),
-        ],
-        out_specs=pl.BlockSpec((bm, bn), lambda i, j, kk: (i, j)),
-        out_shape=jax.ShapeDtypeStruct((m, n), out_dtype),
-        scratch_shapes=[pltpu.VMEM((bm, bn), jnp.float32)],
-        interpret=_interpret(),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * m * n * k,
-            bytes_accessed=(m * k + k * n) * x.dtype.itemsize + m * n * 4,
-            transcendentals=0,
-        ),
-    )(x, w)
-
-
-def _sketch_center_gram_kernel_1k(
-    x_ref, w_ref, colw_ref, yc_ref, st_ref, g_ref, *, inv_t: float
-):
-    """Single-k-block specialization: the whole time axis is contracted
-    in one dot, so Yc streams straight to its output block (no VMEM
-    accumulator round-trip), and the stats pack into ONE (bm, 2) store
-    (two separate single-lane stores measured ~1 ms slower at S=2^19)."""
-    i = pl.program_id(0)
-
-    @pl.when(i == 0)
-    def _():
-        g_ref[:] = jnp.zeros_like(g_ref)
-
-    blk = x_ref[:]
-    # dtype-resolved precision: f32 inputs take the 3-pass full-f32
-    # multiply (the single-pass bf16 default desynchronizes G from the
-    # Yc actually stored and the CholQR whitening then breaks on
-    # ill-conditioned sketches; the kernel is HBM-bound so the extra
-    # MXU passes hide behind the X stream).  bf16 inputs take the
-    # native exact bf16 x bf16 -> f32 pass.
-    y = jnp.dot(
-        blk, w_ref[:],
-        preferred_element_type=jnp.float32,
-        precision=_dot_precision(blk.dtype, w_ref.dtype),
-    )
-    blk32 = blk.astype(jnp.float32)
-    rs = jnp.sum(blk32, axis=1, keepdims=True)
-    st_ref[:, 0:1] = rs
-    st_ref[:, 1:2] = jnp.sum(blk32 * blk32, axis=1, keepdims=True)
-    yc = (y - (rs * inv_t) * colw_ref[:]).astype(yc_ref.dtype)
-    yc_ref[:] = yc
-    # G from the STORED (possibly bf16-quantized) Yc — G must describe
-    # the Yc the projection and lift passes will actually read, or the
-    # whitening factor chol(G) stops orthonormalizing Q = Yc L^-T
-    g_ref[:] += jax.lax.dot_general(
-        yc, yc, (((0,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-        precision=_dot_precision(yc.dtype, yc.dtype),
-    )
-
-
-def _sketch_center_gram_project_kernel_1k(
-    x_ref, w_ref, colw_ref, yc_ref, st_ref, g_ref, c_ref,
-    *, inv_t: float, stats_col: bool, scalar_stats: bool = False,
-):
-    """The fully-fused fit-step ingest: Yc, row stats, G = Yc^T Yc AND
-    the projection C = Yc^T X from ONE read of X.
-
-    The projection accumulate reuses the X block already resident in
-    VMEM for the sketch dot — eliminating the entire second streaming
-    pass over X (and the Yc re-read) that a separate ``project`` call
-    costs.  The extra dot is MXU work hidden behind the HBM stream.
-
-    ``stats_col``: the caller replaced the LAST sketch column with
-    all-ones, so the row sum is the last column of the PRE-centering
-    sketch — free from the MXU dot instead of a VPU lane reduction
-    (which measured ~40% of the block time at bf16: the epilogue's
-    convert+square+2 reductions serialize with the dots).  Only the
-    square+sum for rowsumsq stays on the VPU, computed in the storage
-    dtype (f32 accumulation) — for bf16 X the quantization of x^2 is
-    the same order as the quantization of x itself.  The centered
-    sketch's last column is then zero to roundoff (exact when T is
-    a power of two), which
-    the downstream whitening treats as a dead direction (ridge).
-    """
-    i = pl.program_id(0)
-
-    @pl.when(i == 0)
-    def _():
-        g_ref[:] = jnp.zeros_like(g_ref)
-        c_ref[:] = jnp.zeros_like(c_ref)
-        if scalar_stats:
-            st_ref[:] = jnp.zeros_like(st_ref)
-
-    blk = x_ref[:]
-    y = jnp.dot(
-        blk, w_ref[:],
-        preferred_element_type=jnp.float32,
-        precision=_dot_precision(blk.dtype, w_ref.dtype),
-    )
-    if stats_col:
-        rs = y[:, -1:]  # ones column: pre-centering sketch = rowsum
-        ssq = jnp.sum(blk * blk, axis=1, keepdims=True, dtype=jnp.float32)
-    else:
-        blk32 = blk.astype(jnp.float32)
-        rs = jnp.sum(blk32, axis=1, keepdims=True)
-        ssq = jnp.sum(blk32 * blk32, axis=1, keepdims=True)
-    if scalar_stats:
-        # the fit step only consumes two SCALARS of the row statistics
-        # (sum of rowsum^2 and sum of rowsumsq); a per-row (M, 2) f32
-        # output tiles to (8, 128) in HBM — 64x padding, 7.3 GB of
-        # phantom buffer at 15.6M rows — so reduce in-kernel instead
-        st_ref[0:1, 0:1] += jnp.sum(rs * rs, keepdims=True).reshape(1, 1)
-        st_ref[0:1, 1:2] += jnp.sum(ssq, keepdims=True).reshape(1, 1)
-    else:
-        st_ref[:, 0:1] = rs
-        st_ref[:, 1:2] = ssq
-    yc = (y - (rs * inv_t) * colw_ref[:]).astype(yc_ref.dtype)
-    yc_ref[:] = yc
-    # G and C both from the STORED (possibly bf16-quantized) Yc so the
-    # downstream whitening/projection algebra describes exactly what the
-    # lift pass reads back (see _sketch_center_gram_kernel_1k note)
-    g_ref[:] += jax.lax.dot_general(
-        yc, yc, (((0,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-        precision=_dot_precision(yc.dtype, yc.dtype),
-    )
-    c_ref[:] += jax.lax.dot_general(
-        yc, blk, (((0,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-        precision=_dot_precision(yc.dtype, blk.dtype),
-    )
+    # the barrier keeps XLA from folding the sum back into one dot over
+    # every row (its algebraic simplifier rewrites reduce(batched dot))
+    return jnp.sum(jax.lax.optimization_barrier(parts), axis=0)
 
 
 @functools.partial(
     jax.jit,
     static_argnames=(
-        "block_m", "out_dtype", "center", "stats_col", "scalar_stats",
-        "t_valid", "emit_yc",
+        "out_dtype", "center", "stats_col", "scalar_stats", "t_valid",
+        "emit_yc",
     ),
 )
 def sketch_center_gram_project(
     x: jax.Array,
     w: jax.Array,
-    block_m: int | None = None,
     out_dtype=jnp.float32,
     center: bool = True,
     stats_col: bool = False,
@@ -271,385 +106,56 @@ def sketch_center_gram_project(
     t_valid: int | None = None,
     emit_yc: bool = True,
 ):
-    """Fused single-pass (Yc, rowsum, rowsumsq, G, C) from ONE read of X.
-
-    Everything :func:`sketch_center_gram` produces PLUS the projection
-    C = Yc^T X, accumulated in the same kernel from the X block already
-    in VMEM — the fit step's pass 2 (a full second read of X plus a
-    re-read of Yc) disappears.  Requires the whole time axis to fit one
-    k-block (bm x T tile in VMEM); callers with longer time axes fall
-    back to :func:`sketch_center_gram` + :func:`project` (two passes).
-
-    ``center=False`` skips the rank-1 mean correction (Y = X W raw) —
-    used by the exact Gram-route SVD whose input is pre-centered.
-
-    ``stats_col=True`` REPLACES the last column of w with ones so the
-    row sum rides the sketch dot on the MXU (see the kernel note):
-    ~25-40% faster pass at bf16, at the cost of one sketch column (the
-    returned Yc's last column is zero to roundoff — callers keep their
-    oversampling margin by budgeting n >= k + 11).
+    """(Yc, rowsum, rowsumsq, G, C) of X against the sketch W.
 
     x: (M, K); w: (K, N).  Returns (Yc (M, N) out_dtype, rowsum (M,)
     f32, rowsumsq (M,) f32, G (N, N) f32, C (N, K) f32).
 
-    ``scalar_stats=True`` replaces the two (M,) stats vectors with the
-    two SCALARS the fit step actually consumes — sum(rowsum^2) and
-    sum(rowsumsq) — reduced in-kernel.  A per-row (M, 2) f32 output is
-    tiled (8, 128) in HBM: 64x padding, 7.3 GB of phantom buffer plus
-    its write bandwidth at M=15.6M rows.
+    ``out_dtype`` sets the storage dtype of Yc.  G and C are ALWAYS
+    computed from the stored (possibly bf16-quantized) Yc, so chol(G)
+    whitens exactly what the projection and lift passes read back.
 
-    ``emit_yc=False`` suppresses the (M, N) Yc output: every grid step
-    writes the same single-block scratch buffer, so the kernel returns
-    only G/C/stats.  The memory-lean fit path (pipeline/train_step.py::
-    fit_step_lean) uses this — with centering folded into the small
-    lift matrix, U can be one plain GEMM against X and the 4 GB Yc
-    residency disappears (HBM holds exactly ONE extra S-sized array).
+    ``center=False`` skips the rank-1 mean correction (Y = X W raw) —
+    used by the exact Gram-route SVD whose input is pre-centered.
+
+    ``stats_col=True`` REPLACES the last column of w with ones, so the
+    row sum is the last column of the pre-centering sketch; the
+    centered sketch's last column is then zero to roundoff, which the
+    downstream whitening treats as a dead direction (ridge).  Callers
+    keep their oversampling margin by budgeting N >= k + 11.
+
+    ``scalar_stats=True`` replaces the two (M,) stats vectors with the
+    two SCALARS the fit step consumes: sum(rowsum^2) and sum(rowsumsq).
+
+    ``emit_yc=False`` returns None for Yc (the memory-lean fit path,
+    pipeline/train_step.py::fit_step_lean, needs only G, C and stats).
 
     ``t_valid``: the trailing ``K - t_valid`` columns of x are ZERO
-    padding (callers pad the time axis to a 128-lane multiple so the
-    array's native layout matches the Mosaic operand constraint — a
-    T=168 bf16 matrix otherwise costs a full relayout copy of X inside
-    every step).  Zero columns are exact no-ops for every product here;
-    only the centering divisor must use the true column count.
+    padding.  Zero columns are exact no-ops for every product here;
+    only the centering divisor uses the true column count.
     """
     if stats_col:
         w = w.at[:, -1].set(1.0)
         if t_valid is not None:
-            # the trailing K - t_valid rows of w pair with ZERO-pad
-            # columns of x: they never touch y, but they DO enter
-            # colw = sum(w) — leaving them at 1.0 makes colw[-1] the
-            # padded K while the centering divisor is 1/t_valid, so the
-            # "dead" stats column of Yc picks up a rowsum-proportional
-            # residue that leaks into G and C.  Zero them so
-            # colw[-1] == t_valid and the column dies exactly.
+            # the padded rows of w pair with zero columns of x, but they
+            # enter colw = sum(w): zero them so colw[-1] == t_valid and
+            # the stats column of Yc dies exactly
             w = w.at[t_valid:, -1].set(0.0)
-    # dtype-aware tile budget, measured on v5e (scoped VMEM limit is
-    # 16 MB and Mosaic's 3-pass HIGHEST-precision f32 dots need ~4x the
-    # tile in scratch): bf16 runs fastest at a 2 MB x-tile (bm=2048 at
-    # T=512 — 1.89 ms vs 2.28 ms at bm=1024); f32 OOMs scoped VMEM past
-    # a 1 MB tile (scripts/fused_tune*.py sweeps).
-    tile_budget = 2 * 1024 * 1024 if x.dtype.itemsize == 2 else 1024 * 1024
-    # Mosaic pads the minor (lane) dim to 128: a T=168 time axis
-    # occupies 256 lanes of VMEM, and the (bm, 2) stats output a full
-    # (bm, 128) tile — budget with PADDED dims or the scoped-vmem
-    # allocator OOMs at shapes the raw-dim estimate says fit
-    # (observed: 17.3 MB actual vs 16 MB limit at T=168, bm=4096).
-    k_pad = ((x.shape[1] + 127) // 128) * 128
-    n_pad = ((w.shape[1] + 127) // 128) * 128
-    if block_m is None:
-        block_m = max(128, min(4096, tile_budget // (k_pad * x.dtype.itemsize)))
-        block_m = 1 << (block_m.bit_length() - 1)  # power-of-two rows
-    m_orig = x.shape[0]
-    x, bm_pad, _ = _pad_rows(x, block_m)
-    m, k = x.shape
-    _, n = w.shape
-    bm = min(bm_pad, m)
-    # whole-time-axis tile must fit VMEM alongside w/yc/g/c blocks;
-    # shrink bm (in 128-row steps) before giving up
-    while bm > 128 and bm * k_pad * x.dtype.itemsize > tile_budget:
-        bm //= 2
-
-    def _vmem_est(bm_: int) -> int:
-        # double-buffered streamed blocks (X in, Yc out, lane-padded
-        # stats), the f32 y intermediate (the term that blows up at
-        # wide sketches: a (T, d*r) Hankel-stacked w hit Mosaic's
-        # 16 MB scoped limit at the X-only heuristic's bm), and the
-        # resident w/G/C blocks
-        ob = jnp.dtype(out_dtype).itemsize
-        return (
-            2 * bm_ * k_pad * x.dtype.itemsize
-            + 2 * bm_ * n_pad * ob
-            + 2 * bm_ * 128 * 4  # (bm, 2) stats pad to (bm, 128)
-            + bm_ * n_pad * 4
-            + 2 * k_pad * n_pad * w.dtype.itemsize
-            + 2 * (n_pad * n_pad + n_pad * k_pad) * 4
-        )
-
-    while bm > 128 and _vmem_est(bm) > 11 * 1024 * 1024:
-        bm //= 2
-    while m % bm:
-        bm -= 128
-    t_true = t_valid if t_valid is not None else k
-    inv_t = (1.0 / t_true) if center else 0.0
-    if bm <= 0 or bm * k * x.dtype.itemsize > 4 * tile_budget:
-        if t_valid is not None and t_valid != k:
-            raise ValueError(
-                "t_valid column padding needs the fused single-k-block "
-                f"kernel; time axis {k} is too long for one VMEM tile"
-            )
-        yc, rs, rss, g = sketch_center_gram(
-            x[:m_orig], w, out_dtype=out_dtype, center=center
-        )
-        c_fb = project(x[:m_orig], yc)
-        yc_fb = yc if emit_yc else None
-        if scalar_stats:
-            return yc_fb, jnp.sum(rs * rs), jnp.sum(rss), g, c_fb
-        return yc_fb, rs, rss, g, c_fb
-    colw = jnp.sum(w.astype(jnp.float32), axis=0, keepdims=True)  # (1, N)
-    st_shape = (1, 128) if scalar_stats else (m, 2)
-    yc_rows = m if emit_yc else bm
-    out_shape = [
-        jax.ShapeDtypeStruct((yc_rows, n), out_dtype),
-        jax.ShapeDtypeStruct(st_shape, jnp.float32),
-        jax.ShapeDtypeStruct((n, n), jnp.float32),
-        jax.ShapeDtypeStruct((n, k), jnp.float32),
-    ]
-    cost = pl.CostEstimate(
-        flops=2 * m * n * k * 2 + 3 * m * k + 2 * m * n * n,
-        bytes_accessed=m * k * x.dtype.itemsize
-        + m * n * jnp.dtype(out_dtype).itemsize
-        + 8 * m
-        + n * n * 4
-        + n * k * 4,
-        transcendentals=0,
+    t_true = t_valid if t_valid is not None else x.shape[1]
+    y = jnp.matmul(
+        x, w, preferred_element_type=jnp.float32,
+        precision=_precision(x.dtype, w.dtype),
     )
-    yc, st, g, c = pl.pallas_call(
-        functools.partial(
-            _sketch_center_gram_project_kernel_1k,
-            inv_t=inv_t,
-            stats_col=stats_col,
-            scalar_stats=scalar_stats,
-        ),
-        grid=(m // bm,),
-        in_specs=[
-            pl.BlockSpec((bm, k), lambda i: (i, 0)),
-            pl.BlockSpec((k, n), lambda i: (0, 0)),
-            pl.BlockSpec((1, n), lambda i: (0, 0)),
-        ],
-        out_specs=[
-            pl.BlockSpec((bm, n), lambda i: (i, 0))
-            if emit_yc
-            else pl.BlockSpec((bm, n), lambda i: (0, 0)),
-            pl.BlockSpec((1, 128), lambda i: (0, 0))
-            if scalar_stats
-            else pl.BlockSpec((bm, 2), lambda i: (i, 0)),
-            pl.BlockSpec((n, n), lambda i: (0, 0)),
-            pl.BlockSpec((n, k), lambda i: (0, 0)),
-        ],
-        out_shape=out_shape,
-        interpret=_interpret(),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",),
-        ),
-        cost_estimate=cost,
-    )(x, w, colw)
-    yc_out = yc[:m_orig] if emit_yc else None
+    x32 = x.astype(jnp.float32)
+    rs = y[:, -1] if stats_col else jnp.sum(x32, axis=1)
+    ssq = jnp.sum(x32 * x32, axis=1)
+    colw = jnp.sum(w.astype(jnp.float32), axis=0)  # (N,)
+    if center:
+        y = y - (rs / t_true)[:, None] * colw[None, :]
+    yc = y.astype(out_dtype)
+    g = row_contract(yc, yc)
+    c = row_contract(yc, x)
+    yc_out = yc if emit_yc else None
     if scalar_stats:
-        return yc_out, st[0, 0], st[0, 1], g, c
-    return yc_out, st[:m_orig, 0], st[:m_orig, 1], g, c
-
-
-def _sketch_center_gram_kernel(
-    x_ref, w_ref, colw_ref, yc_ref, st_ref, g_ref, acc_ref,
-    *, n_k: int, inv_t: float,
-):
-    """One pass over X: centered sketch Yc = (X - mu 1^T) W, row stats,
-    and the Gram matrix G = Yc^T Yc, all from a single HBM read.
-
-    Centering is exact inside the kernel because the full time axis is
-    contracted before the epilogue: mu_blk = rowsum_blk / T, and
-    Yc = X W - mu (1^T W).
-    """
-    i, kk = pl.program_id(0), pl.program_id(1)
-
-    @pl.when(kk == 0)
-    def _():
-        acc_ref[:] = jnp.zeros_like(acc_ref)
-        st_ref[:] = jnp.zeros_like(st_ref)
-
-    @pl.when((i == 0) & (kk == 0))
-    def _():
-        g_ref[:] = jnp.zeros_like(g_ref)
-
-    blk = x_ref[:]
-    acc_ref[:] += jnp.dot(
-        blk, w_ref[:],
-        preferred_element_type=jnp.float32,
-        precision=_dot_precision(blk.dtype, w_ref.dtype),
-    )
-    blk32 = blk.astype(jnp.float32)
-    st_ref[:, 0:1] += jnp.sum(blk32, axis=1, keepdims=True)
-    st_ref[:, 1:2] += jnp.sum(blk32 * blk32, axis=1, keepdims=True)
-
-    @pl.when(kk == n_k - 1)
-    def _():
-        yc = (acc_ref[:] - (st_ref[:, 0:1] * inv_t) * colw_ref[:]).astype(
-            yc_ref.dtype
-        )
-        yc_ref[:] = yc
-        # G from the STORED Yc (see the 1k kernel note)
-        g_ref[:] += jax.lax.dot_general(
-            yc, yc, (((0,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-            precision=_dot_precision(yc.dtype, yc.dtype),
-        )
-
-
-@functools.partial(
-    jax.jit, static_argnames=("block_m", "block_k", "out_dtype", "center")
-)
-def sketch_center_gram(
-    x: jax.Array,
-    w: jax.Array,
-    block_m: int = 512,
-    block_k: int | None = None,
-    out_dtype=jnp.float32,
-    center: bool = True,
-):
-    """Fused single-pass (Yc, rowsum, rowsumsq, G) from one read of X.
-
-    The ingest side of the fused fit step: the *centered* sketch
-    Yc = (X - mu 1^T) W, the centering statistics, and the Gram matrix
-    G = Yc^T Yc all come from ONE read of X — the mean-centered matrix
-    is never materialized, and the whitening factor chol(G) needs no
-    second pass over Yc (see pipeline/train_step.py for the algebra).
-
-    Fast path: N a multiple of 128 lanes (pad the sketch width —
-    measured ~2.4x faster than N=110 at S=2^19 on v5e).
-
-    ``out_dtype`` sets the storage dtype of Yc (bf16 on the bf16-
-    resident path halves the Yc HBM traffic of the two downstream
-    passes).  G is ALWAYS computed from the quantized, stored Yc with
-    f32 accumulation, so chol(G) whitens exactly what the projection
-    and lift passes read back.
-
-    x: (M, K); w: (K, N).  Returns (Yc (M, N) out_dtype, rowsum (M,)
-    f32, rowsumsq (M,) f32, G (N, N) f32).
-    """
-    m_orig = x.shape[0]
-    x, bm_pad, _ = _pad_rows(x, block_m)
-    m, k = x.shape
-    _, n = w.shape
-    bm = min(bm_pad, m)
-    if block_k is None:
-        # whole time axis per block when the X tile fits VMEM comfortably
-        block_k = k if bm * k * x.dtype.itemsize <= 4 * 1024 * 1024 else 512
-    bk = min(block_k, k)
-    assert m % bm == 0 and k % bk == 0, (m, k, bm, bk)
-    n_k = k // bk
-    inv_t = (1.0 / k) if center else 0.0
-    colw = jnp.sum(w.astype(jnp.float32), axis=0, keepdims=True)  # (1, N)
-    out_shape = [
-        jax.ShapeDtypeStruct((m, n), out_dtype),
-        jax.ShapeDtypeStruct((m, 2), jnp.float32),
-        jax.ShapeDtypeStruct((n, n), jnp.float32),
-    ]
-    cost = pl.CostEstimate(
-        flops=2 * m * n * k + 3 * m * k + 2 * m * n * n,
-        bytes_accessed=m * k * x.dtype.itemsize
-        + m * n * jnp.dtype(out_dtype).itemsize
-        + 8 * m
-        + n * n * 4,
-        transcendentals=0,
-    )
-    if n_k == 1:
-        yc, st, g = pl.pallas_call(
-            functools.partial(_sketch_center_gram_kernel_1k, inv_t=inv_t),
-            grid=(m // bm,),
-            in_specs=[
-                pl.BlockSpec((bm, k), lambda i: (i, 0)),
-                pl.BlockSpec((k, n), lambda i: (0, 0)),
-                pl.BlockSpec((1, n), lambda i: (0, 0)),
-            ],
-            out_specs=[
-                pl.BlockSpec((bm, n), lambda i: (i, 0)),
-                pl.BlockSpec((bm, 2), lambda i: (i, 0)),
-                pl.BlockSpec((n, n), lambda i: (0, 0)),
-            ],
-            out_shape=out_shape,
-            interpret=_interpret(),
-            compiler_params=pltpu.CompilerParams(
-                dimension_semantics=("arbitrary",),
-            ),
-            cost_estimate=cost,
-        )(x, w, colw)
-        return yc[:m_orig], st[:m_orig, 0], st[:m_orig, 1], g
-    yc, st, g = pl.pallas_call(
-        functools.partial(
-            _sketch_center_gram_kernel, n_k=n_k, inv_t=inv_t
-        ),
-        grid=(m // bm, n_k),
-        in_specs=[
-            pl.BlockSpec((bm, bk), lambda i, kk: (i, kk)),
-            pl.BlockSpec((bk, n), lambda i, kk: (kk, 0)),
-            pl.BlockSpec((1, n), lambda i, kk: (0, 0)),
-        ],
-        out_specs=[
-            pl.BlockSpec((bm, n), lambda i, kk: (i, 0)),
-            pl.BlockSpec((bm, 2), lambda i, kk: (i, 0)),
-            pl.BlockSpec((n, n), lambda i, kk: (0, 0)),
-        ],
-        out_shape=out_shape,
-        scratch_shapes=[pltpu.VMEM((bm, n), jnp.float32)],
-        interpret=_interpret(),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary", "arbitrary"),
-        ),
-        cost_estimate=cost,
-    )(x, w, colw)
-    return yc[:m_orig], st[:m_orig, 0], st[:m_orig, 1], g
-
-
-def _project_kernel(x_ref, y_ref, c_ref):
-    """Accumulate C += Y_blk^T X_blk (contraction via dot_general — no
-    materialized transpose; the row axis contracts on the MXU)."""
-    i = pl.program_id(1)
-
-    @pl.when(i == 0)
-    def _():
-        c_ref[:] = jnp.zeros_like(c_ref)
-
-    c_ref[:] += jax.lax.dot_general(
-        y_ref[:], x_ref[:], (((0,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-        precision=_dot_precision(y_ref.dtype, x_ref.dtype),
-    )
-
-
-@functools.partial(jax.jit, static_argnames=("block_m", "block_t"))
-def project(
-    x: jax.Array,
-    y: jax.Array,
-    block_m: int = 2048,
-    block_t: int | None = None,
-):
-    """C = Y^T X in one streaming pass over X and Y.
-
-    The projection side of the fused fit step: with the sketch basis
-    kept as the centered Yc (never whitened into a materialized Q), the
-    projected factor is B = L^-1 (C - c_mu 1^T), and the mean term is
-    FREE — mu is the row mean of X, so c_mu = Y^T mu = C @ 1/T.
-
-    x: (M, T); y: (M, r).  Returns C (r, T) f32.
-    """
-    x, bm_pad, _ = _pad_rows(x, block_m)
-    y, _, _ = _pad_rows(y, block_m)
-    m, t = x.shape
-    _, r = y.shape
-    bm = min(bm_pad, m)
-    if block_t is None:
-        block_t = t if bm * t * x.dtype.itemsize <= 8 * 1024 * 1024 else 512
-    bt = min(block_t, t)
-    assert m % bm == 0 and t % bt == 0, (m, t, bm, bt)
-    n_m, n_t = m // bm, t // bt
-    return pl.pallas_call(
-        _project_kernel,
-        grid=(n_t, n_m),
-        in_specs=[
-            pl.BlockSpec((bm, bt), lambda j, i: (i, j)),
-            pl.BlockSpec((bm, r), lambda j, i: (i, 0)),
-        ],
-        out_specs=pl.BlockSpec((r, bt), lambda j, i: (0, j)),
-        out_shape=jax.ShapeDtypeStruct((r, t), jnp.float32),
-        interpret=_interpret(),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary", "arbitrary"),
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * m * r * t,
-            bytes_accessed=m * t * x.dtype.itemsize
-            + n_t * m * r * y.dtype.itemsize
-            + r * t * 4,
-            transcendentals=0,
-        ),
-    )(x, y)
+        return yc_out, jnp.sum(rs * rs), jnp.sum(ssq), g, c
+    return yc_out, rs, ssq, g, c

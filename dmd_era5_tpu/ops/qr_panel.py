@@ -1,149 +1,47 @@
-"""TPU-native QR panel factorization: Pallas Gram kernel + CholQR2.
+"""Gram products and Cholesky QR for tall-skinny panels.
 
-SURVEY.md section 2b calls for the LAPACK-geqrf replacement that TSQR
-builds on.  A literal blocked-Householder panel is the wrong shape for
-the MXU — its reflector updates are thin, sequential, VPU-bound work.
-The TPU-native panel algorithm is **CholeskyQR2**: factor the panel via
-its Gram matrix,
+**CholeskyQR2** factors a panel through its Gram matrix,
 
-    G = A^T A (one MXU pass over A),  R = chol(G)^T,  Q = A R^-1,
+    G = A^T A (one pass over A),  R = chol(G)^T,  Q = A R^-1,
 
-then repeat once to restore orthogonality to machine precision
+then repeats once to restore orthogonality to machine precision
 (CholQR's error scales with cond(A)^2; the second pass squares it away
-for cond(A) < ~1e4, which the TSQR combine guarantees for local
-blocks after the first level).  Every FLOP lands on the MXU as a large
-GEMM or a triangular solve of k x k size; the single pass over A is
-HBM-optimal.
-
-The Gram product is a Pallas kernel (one read of A, fp32 accumulation in
-VMEM); the triangular solve applies to the small k x k factor and runs
-replicated.
+for cond(A) < ~1e4, which the TSQR combine guarantees for local blocks
+after the first level).  The tall work is two GEMMs per pass; the
+Cholesky and the triangular inverse are k x k.
 """
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
 from jax import lax
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-__all__ = ["gram", "cholqr2", "cholqr", "householder_panel"]
+from dmd_era5_tpu.ops.matmul import row_contract
 
-
-def _interpret() -> bool:
-    return jax.default_backend() != "tpu"
+__all__ = ["gram", "cholqr2", "cholqr", "cholqr2_split"]
 
 
-def _gram_kernel(a_ref, out_ref, acc_ref, *, n_m: int, precision):
-    i = pl.program_id(0)
-
-    @pl.when(i == 0)
-    def _():
-        acc_ref[:] = jnp.zeros_like(acc_ref)
-
-    blk = a_ref[:]
-    # contraction over rows via dot_general (no materialized transpose);
-    # full-f32 multiplies by default — the Pallas default is single-pass
-    # bf16, which desynchronizes G from A and breaks CholQR downstream.
-    acc_ref[:] += jax.lax.dot_general(
-        blk, blk, (((0,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-        precision=precision,
-    )
-
-    @pl.when(i == n_m - 1)
-    def _():
-        out_ref[:] = acc_ref[:]
-
-
-def _gram_split_kernel(a_ref, out_ref, acc_hh_ref, acc_hl_ref, *, n_m: int):
-    """bf16-split Gram: 2 MXU passes instead of HIGHEST's 6.
-
-    Split A = H + L (bf16 head + bf16 tail of each f32 entry); then
-
-        G = A^T A  ≈  H^T H  +  H^T L  +  (H^T L)^T
-
-    dropping the L^T L term (~2^-17 relative — below the bf16x3 error
-    the split representation already carries).  Symmetry means the two
-    cross terms are ONE dot + a transpose, applied once at the end, so
-    the per-block MXU cost is two single-pass bf16 dots — 3x less MXU
-    work than the HIGHEST (6-pass) kernel at ~1e-7 relative Gram error.
-    Use only where downstream error is quadratic in the G perturbation
-    (Rayleigh-Ritz / eigh subspace extraction), NOT for CholQR.
-    """
-    i = pl.program_id(0)
-
-    @pl.when(i == 0)
-    def _():
-        acc_hh_ref[:] = jnp.zeros_like(acc_hh_ref)
-        acc_hl_ref[:] = jnp.zeros_like(acc_hl_ref)
-
-    blk = a_ref[:]
-    hi = blk.astype(jnp.bfloat16)
-    lo = (blk - hi.astype(jnp.float32)).astype(jnp.bfloat16)
-    dims = (((0,), (0,)), ((), ()))
-    acc_hh_ref[:] += jax.lax.dot_general(
-        hi, hi, dims, preferred_element_type=jnp.float32
-    )
-    acc_hl_ref[:] += jax.lax.dot_general(
-        hi, lo, dims, preferred_element_type=jnp.float32
-    )
-
-    @pl.when(i == n_m - 1)
-    def _():
-        out_ref[:] = acc_hh_ref[:] + acc_hl_ref[:] + acc_hl_ref[:].T
-
-
-@functools.partial(jax.jit, static_argnames=("block_m", "precision"))
 def gram(
     a: jax.Array,
-    block_m: int = 1024,
     precision: lax.Precision | str = lax.Precision.HIGHEST,
 ) -> jax.Array:
-    """G = A^T A in one pass over A (M, K) -> (K, K), fp32.
-
-    Rows are zero-padded to the block size when needed — zero rows are
-    exact no-ops for the Gram product.
+    """G = A^T A, (M, K) -> (K, K) f32.
 
     ``precision`` accepts a :class:`lax.Precision` (HIGHEST default —
     required for CholQR downstream) or the string ``"bf16_split"``: a
-    2-MXU-pass hi/lo split Gram (~1e-7 relative error) for callers
-    whose downstream error is quadratic in the G perturbation, e.g. the
-    eigh-subspace pass of the Gram-route exact SVD.
+    hi/lo split Gram of two bf16 products (~1e-7 relative error) for
+    callers whose downstream error is quadratic in the G perturbation,
+    e.g. the eigh-subspace pass of the Gram-route exact SVD.
     """
-    m, k = a.shape
-    bm = min(block_m, m)
-    if m % bm:
-        pad = bm - m % bm
-        a = jnp.pad(a, ((0, pad), (0, 0)))
-        m = m + pad
-    n_m = m // bm
     if precision == "bf16_split":
-        kernel = functools.partial(_gram_split_kernel, n_m=n_m)
-        scratch = [
-            pltpu.VMEM((k, k), jnp.float32),
-            pltpu.VMEM((k, k), jnp.float32),
-        ]
-    else:
-        kernel = functools.partial(_gram_kernel, n_m=n_m, precision=precision)
-        scratch = [pltpu.VMEM((k, k), jnp.float32)]
-    return pl.pallas_call(
-        kernel,
-        grid=(n_m,),
-        in_specs=[pl.BlockSpec((bm, k), lambda i: (i, 0))],
-        out_specs=pl.BlockSpec((k, k), lambda i: (0, 0)),
-        out_shape=jax.ShapeDtypeStruct((k, k), jnp.float32),
-        scratch_shapes=scratch,
-        interpret=_interpret(),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * m * k * k,
-            bytes_accessed=m * k * a.dtype.itemsize + k * k * 4,
-            transcendentals=0,
-        ),
-    )(a)
+        # A = H + L (bf16 head + bf16 tail of each f32 entry):
+        # A^T A ~ H^T H + H^T L + (H^T L)^T, dropping the ~2^-17 L^T L
+        hi = a.astype(jnp.bfloat16)
+        lo = (a - hi.astype(jnp.float32)).astype(jnp.bfloat16)
+        ghl = row_contract(hi, lo)
+        return row_contract(hi, hi) + ghl + ghl.T
+    return row_contract(a, a, precision)
 
 
 def _chol_r(g: jax.Array) -> jax.Array:
@@ -158,14 +56,12 @@ def _chol_r(g: jax.Array) -> jax.Array:
 def cholqr(
     a: jax.Array,
     gram_precision: lax.Precision | str = lax.Precision.HIGHEST,
-    whiten_precision: lax.Precision = lax.Precision.HIGHEST,
 ) -> tuple[jax.Array, jax.Array]:
     """Single-pass Cholesky QR: Q = A R^-1, R = chol(A^T A)^T.
 
     The whitening is one GEMM against the Newton-refined k x k inverse
-    (utils/linalg.py::tri_inv): a right-side trsm over (M, k) lowers to
-    a slow, low-precision column sweep on TPU — both a throughput and
-    an accuracy hazard.
+    (utils/linalg.py::tri_inv) instead of a right-side trsm over the
+    tall (M, k) panel.
     """
     from dmd_era5_tpu.utils.linalg import tri_inv
 
@@ -174,7 +70,7 @@ def cholqr(
     q = jnp.matmul(
         a.astype(jnp.float32),
         tri_inv(r, lower=False),
-        precision=whiten_precision,
+        precision=lax.Precision.HIGHEST,
     )
     return q, r
 
@@ -187,138 +83,14 @@ def cholqr2(a: jax.Array) -> tuple[jax.Array, jax.Array]:
 
 
 def cholqr2_split(a: jax.Array) -> tuple[jax.Array, jax.Array]:
-    """CholeskyQR2 with split-precision MXU passes — the TPU leaf.
+    """CholeskyQR2 whose Gram products are the bf16 hi/lo split.
 
-    Per pass: the 2-MXU-pass hi/lo split Gram (~1e-7 relative G error)
-    and a Precision.HIGH (bf16x3) whitening GEMM — 10 single-bf16 MXU
-    passes over the tall matrix in total, versus 24 for the all-HIGHEST
-    ``cholqr2`` (two 6-pass Grams + two 6-pass whitenings).  The
-    CholQR2 structure absorbs the cheaper arithmetic: pass-1 errors
-    only perturb Q1's conditioning, which pass 2 corrects, so final
-    orthogonality and factorization residual land at ~1e-6 — one digit
-    above the HIGHEST leaf, 2.4x less MXU work (VERDICT r3 item 8).
-    Head singular values through the R factor keep ~1e-6 relative
-    error; prefer plain ``cholqr2`` (or ``householder``) when the panel
-    conditioning approaches 1/sqrt(eps_f32).
+    The CholQR2 structure absorbs the cheaper Gram: pass-1 errors only
+    perturb Q1's conditioning, which pass 2 corrects, so orthogonality
+    and factorization residual land at ~1e-6.  The whitening GEMMs stay
+    at HIGHEST (a TF32 whitening would leave ~1e-3 in Q).  Prefer plain
+    ``cholqr2`` when the panel conditioning approaches 1/sqrt(eps_f32).
     """
-    q1, r1 = cholqr(a, "bf16_split", lax.Precision.HIGH)
-    q2, r2 = cholqr(q1, "bf16_split", lax.Precision.HIGH)
+    q1, r1 = cholqr(a, "bf16_split")
+    q2, r2 = cholqr(q1, "bf16_split")
     return q2, jnp.matmul(r2, r1, precision=lax.Precision.HIGHEST)
-
-
-# ------------------------------------------------- Householder panel
-
-
-def _householder_kernel(a_ref, q_ref, r_ref, acc_ref, v_ref, beta_ref):
-    """Blocked Householder panel factorization, panel resident in VMEM.
-
-    Factors A (m, n) = Q R with n reflectors; the reflector vectors and
-    betas stay in VMEM scratch, Q is recovered by applying them in
-    reverse to the leading identity columns.  The per-column rank-1
-    updates are VPU work — this kernel is the backward-stable fallback
-    for ill-conditioned panels, not the throughput path (CholQR2 is).
-    """
-    m, n = a_ref.shape
-    acc_ref[:] = a_ref[:].astype(jnp.float32)
-    # All shapes stay 2D (no 1D-operand dots in Mosaic) and all row/col
-    # selection is mask-based: dynamic slices would need statically
-    # provable 128-lane / 8-sublane alignment, which a loop index is not.
-    row_col = jax.lax.broadcasted_iota(jnp.int32, (m, 1), 0)  # (m, 1)
-    col_row = jax.lax.broadcasted_iota(jnp.int32, (1, n), 1)  # (1, n)
-    vrow_ids = jax.lax.broadcasted_iota(jnp.int32, (n, 1), 0)  # (n, 1)
-
-    def factor_step(j, _):
-        col = jnp.sum(
-            jnp.where(col_row == j, acc_ref[:], 0.0), axis=1, keepdims=True
-        )  # (m, 1)
-        tail = jnp.where(row_col >= j, col, 0.0)
-        sigma = jnp.sum(tail * tail)
-        norm = jnp.sqrt(sigma)
-        ajj = jnp.sum(jnp.where(row_col == j, col, 0.0))
-        sign = jnp.where(ajj >= 0, 1.0, -1.0)
-        alpha = -sign * norm
-        v = tail - alpha * jnp.where(row_col == j, 1.0, 0.0)  # (m, 1)
-        vtv = jnp.sum(v * v)
-        beta = jnp.where(vtv > 0, 2.0 / vtv, 0.0)
-        # trailing update: A -= beta v (v^T A), masked to columns >= j
-        w = jnp.dot(
-            v.T, acc_ref[:],
-            preferred_element_type=jnp.float32,
-            precision=jax.lax.Precision.HIGHEST,
-        )
-        w = jnp.where(col_row >= j, w, 0.0) * beta  # (1, n)
-        acc_ref[:] = acc_ref[:] - v * w
-        v_ref[:] = jnp.where(vrow_ids == j, v.T, v_ref[:])
-        beta_ref[:] = jnp.where(vrow_ids == j, beta, beta_ref[:])
-        return 0
-
-    jax.lax.fori_loop(0, n, factor_step, 0)
-
-    # R: first n rows of the reduced panel, upper triangle
-    r_full = acc_ref[0:n, :]
-    tri_rows = jax.lax.broadcasted_iota(jnp.int32, (n, n), 0)
-    tri_cols = jax.lax.broadcasted_iota(jnp.int32, (n, n), 1)
-    r_ref[:] = jnp.where(tri_rows <= tri_cols, r_full, 0.0)
-
-    # Q: apply reflectors in reverse to the identity columns
-    acc_ref[:] = jnp.where(
-        row_col == col_row, jnp.float32(1.0), jnp.float32(0.0)
-    )
-
-    def q_step(i, _):
-        j = n - 1 - i
-        v = jnp.sum(
-            jnp.where(vrow_ids == j, v_ref[:], 0.0), axis=0, keepdims=True
-        )  # (1, m)
-        beta = jnp.sum(jnp.where(vrow_ids == j, beta_ref[:], 0.0))
-        w = (
-            jnp.dot(
-                v, acc_ref[:],
-                preferred_element_type=jnp.float32,
-                precision=jax.lax.Precision.HIGHEST,
-            )
-            * beta
-        )
-        acc_ref[:] = acc_ref[:] - v.T * w
-        return 0
-
-    jax.lax.fori_loop(0, n, q_step, 0)
-    q_ref[:] = acc_ref[:]
-
-
-@functools.partial(jax.jit)
-def householder_panel(a: jax.Array) -> tuple[jax.Array, jax.Array]:
-    """Pallas blocked Householder QR of a panel (m <= ~16k, n <= 256).
-
-    Returns (Q (m, n), R (n, n)) with the diag(R) >= 0 convention.
-    The whole panel lives in VMEM for the duration — the TSQR tree
-    composes panels for taller matrices.
-    """
-    m, n = a.shape
-    q, r = pl.pallas_call(
-        _householder_kernel,
-        out_shape=(
-            jax.ShapeDtypeStruct((m, n), jnp.float32),
-            jax.ShapeDtypeStruct((n, n), jnp.float32),
-        ),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)],
-        out_specs=(
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((m, n), jnp.float32),
-            pltpu.VMEM((n, m), jnp.float32),
-            pltpu.VMEM((n, 1), jnp.float32),
-        ],
-        interpret=_interpret(),
-        cost_estimate=pl.CostEstimate(
-            flops=4 * m * n * n,
-            bytes_accessed=2 * m * n * 4,
-            transcendentals=n,
-        ),
-    )(a.astype(jnp.float32))
-    # sign convention: diag(R) >= 0
-    signs = jnp.sign(jnp.diagonal(r))
-    signs = jnp.where(signs == 0, 1.0, signs)
-    return q * signs[None, :], r * signs[:, None]

@@ -8,7 +8,7 @@ scale"):
   the snapshot matrix stream host -> device while the sketch
   accumulator Y += X_blk @ Omega_blk updates on device.  JAX's async
   dispatch double-buffers automatically: the ``device_put`` of block
-  i+1 overlaps the GEMM of block i, so transfer and MXU time pipeline
+  i+1 overlaps the GEMM of block i, so transfer and compute pipeline
   (the PP analogue of SURVEY.md section 2b).
 - :func:`svd_rank_update` — classic incremental SVD (Brand-style):
   append new snapshot columns to an existing truncated factorization

@@ -3,7 +3,7 @@
 For use inside ``shard_map`` bodies.  These exist so the linear-algebra
 ops read as communication-explicit algorithms (psum / all-gather /
 all-to-all / ring-permute) rather than a scatter of lax calls — the
-TPU-native replacement for the reference's absent NCCL/MPI layer
+replacement for the reference's absent NCCL/MPI layer
 (SURVEY.md section 2b, "Distributed communication backend").  Every
 wrapper here has a production caller; reduce-scatter was removed for
 lack of one (all reductions in this engine produce SMALL replicated
@@ -18,7 +18,7 @@ from jax import lax
 
 
 def psum(x, axis_name: str):
-    """Sum across a mesh axis (rides ICI within a slice)."""
+    """Sum across a mesh axis."""
     return lax.psum(x, axis_name)
 
 

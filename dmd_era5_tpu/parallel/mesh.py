@@ -2,12 +2,12 @@
 
 The communication backend of the engine (SURVEY.md section 2b): the
 reference is single-process with no comm layer at all, so this module is
-designed TPU-first rather than ported.  All distributed code in the
+designed for the mesh rather than ported.  All distributed code in the
 package is written against a :class:`jax.sharding.Mesh` with up to three
 named axes:
 
 - ``space``: row-sharding of the snapshot matrix (tensor-parallel
-  workhorse for the tall-skinny GEMM/QR path); collectives ride ICI.
+  workhorse for the tall-skinny GEMM/QR path).
 - ``time``: column-sharding for long time ranges (sequence-parallel
   analogue); the delay-embedding halo exchange and the all-to-all
   reshard live on this axis.
@@ -34,14 +34,11 @@ MESH_AXES = (AXIS_DATA, AXIS_SPACE, AXIS_TIME)
 
 
 # Environment markers whose presence means "this process is one worker
-# of a managed multi-host launch" — Cloud TPU pods, GKE TPU slices,
-# MegaScale multislice, and SLURM/MPI launchers.  jax.distributed's
-# cluster autodetection knows how to derive coordinator/process-id from
-# each of these, so an argless initialize() is the right call.
+# of a managed multi-host launch" (SLURM and OpenMPI launchers).
+# jax.distributed's cluster autodetection derives coordinator and
+# process id from each of these, so an argless initialize() is the
+# right call.
 _CLUSTER_ENV_MARKERS = (
-    "TPU_WORKER_HOSTNAMES",  # Cloud TPU VM pods
-    "TPU_WORKER_ID",
-    "MEGASCALE_COORDINATOR_ADDRESS",  # multislice
     "SLURM_JOB_ID",
     "OMPI_COMM_WORLD_SIZE",
 )
@@ -55,11 +52,10 @@ def initialize_distributed() -> None:
     1. Explicit ``JAX_COORDINATOR_ADDRESS`` + ``JAX_NUM_PROCESSES`` +
        ``JAX_PROCESS_ID`` — bespoke launchers (our multi-process CPU
        tests use this).
-    2. Standard managed environments (Cloud TPU pod / GKE / multislice /
-       SLURM / OpenMPI, detected via their env markers): argless
+    2. Managed launchers (SLURM / OpenMPI, detected via their env
+       markers): argless
        ``jax.distributed.initialize()`` so jax's cluster autodetection
-       does the wiring — standard ``python -m dmd_era5_tpu...`` pod
-       launches need no extra plumbing.
+       does the wiring.
     3. Otherwise: single-process, do nothing.
     """
     if jax.process_count() > 1:
@@ -180,7 +176,7 @@ def make_hybrid_mesh(
     devices: Sequence[jax.Device] | None = None,
     n_slices: int | None = None,
 ) -> Mesh:
-    """Build a (data, space, time) mesh spanning multiple TPU slices.
+    """Build a (data, space, time) mesh spanning multiple slices.
 
     Multislice topology: devices within one slice are connected by ICI
     (fast); slices talk over DCN (slow).  Each mesh axis combines a DCN
@@ -196,8 +192,8 @@ def make_hybrid_mesh(
     r x T factors psum every step — absorbs each slice's devices on ICI.
 
     ``n_slices`` overrides slice detection for virtual-device tests
-    (contiguous equal groups); real TPU slices are grouped by the
-    device's ``slice_index``.
+    (contiguous equal groups); otherwise devices are grouped by their
+    ``slice_index`` (one slice when the devices report none).
     """
     devices = list(devices if devices is not None else jax.devices())
     if n_slices is not None:

@@ -25,8 +25,6 @@ import shutil
 from datetime import datetime, timezone
 from pathlib import Path
 
-import yaml
-
 from dmd_era5_tpu.core.logging import log_and_print, setup_logger
 from dmd_era5_tpu.core.paths import repo_root
 
@@ -120,6 +118,8 @@ def add_data_to_store(data_path: str | Path, data_attrs: dict) -> str:
     ``add_config_to_dvc_log`` semantics (dvc_tools.py:11-63) without the
     git staging side effect.
     """
+    import yaml
+
     data_path = Path(data_path)
     md5 = file_md5(data_path)
     obj = _objects_dir() / md5
@@ -235,7 +235,7 @@ def _entry_visible_as_of(attrs: dict, index: int, as_of) -> bool:
     if stamp is None:
         return True
     logged = datetime.fromisoformat(stamp)
-    # the stored stamp is UTC; a naive as_of is TREATED AS UTC (ADVICE
+    # the stored stamp is UTC; a naive as_of is TREATED AS UTC (review
     # r4: stripping tzinfo from the stamp instead shifted visibility by
     # the caller's UTC offset)
     if when.tzinfo is None:
@@ -264,6 +264,8 @@ def retrieve_data_from_store(
     ordinal or an ISO timestamp/datetime; later log entries are
     invisible to the match.
     """
+    import yaml
+
     if data_type == "era5_slice":
         target = Path(parsed_config["era5_slice_path"])
         keys = _SLICE_MATCH_KEYS
@@ -333,6 +335,8 @@ def list_versions(
     over the DVC log (dvc_tools.py:66-92): every historical version
     remains addressable, not just the newest match.
     """
+    import yaml
+
     log_file = _log_path(data_path)
     if not log_file.exists():
         return []
@@ -380,6 +384,8 @@ def retrieve_latest_from_store(
     matching version wins, and places the artifact at the config's own
     workdir path.
     """
+    import yaml
+
     if data_type == "era5_slice":
         target = Path(parsed_config["era5_slice_path"])
     elif data_type == "era5_svd":

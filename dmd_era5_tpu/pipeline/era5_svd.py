@@ -6,7 +6,7 @@ cache (workdir attr-match -> versioned store -> compute), the preprocess
 chain (subset vars -> slice levels -> resample -> standardize -> flatten
 -> delay-embed -> tile mean/std across delay blocks), decomposition, and
 the packaged results dataset — with the decomposition itself running on
-the TPU mesh through ``ops.truncated_svd`` (distributed TSQR / sketch)
+the device mesh through ``ops.truncated_svd`` (distributed TSQR / sketch)
 instead of numpy/sklearn in host RAM.
 
 Run as ``python -m dmd_era5_tpu.pipeline.era5_svd``.
@@ -211,6 +211,31 @@ def retrieve_svd_results(
     )
 
 
+BUDGET_ENV_VAR = "DMD_ERA5_TPU_HBM_BUDGET_GB"
+# share of the allocator's limit that the in-memory estimate may fill:
+# the estimate counts X and two (S, k) factors in f32, not the transient
+# copies of the in-memory routes (the bf16 hi/lo split of X, the f32
+# sketch before its cast), which add about as much again
+_BUDGET_FRACTION = 0.5
+
+
+def device_memory_budget_gb(mesh: Mesh) -> float | None:
+    """Per-device memory (GB) the in-memory SVD backends may plan for.
+
+    ``DMD_ERA5_TPU_HBM_BUDGET_GB`` overrides; otherwise half of the
+    first mesh device's ``memory_stats()["bytes_limit"]``.  None when
+    the device reports no limit (the CPU): everything stays in memory.
+    """
+    override = os.environ.get(BUDGET_ENV_VAR)
+    if override:
+        return float(override)
+    stats = mesh.devices.flat[0].memory_stats() or {}
+    limit = stats.get("bytes_limit")
+    if not limit:
+        return None
+    return _BUDGET_FRACTION * limit / 1e9
+
+
 def resolve_svd_backend(
     parsed_config: dict,
     mesh: Mesh,
@@ -252,7 +277,7 @@ def resolve_svd_backend(
         return backend
     def over_hbm_budget() -> bool:
         # real-ERA5 scale guard: if the per-device share of the matrix
-        # (f32) plus the factor arrays cannot fit HBM, route
+        # (f32) plus the factor arrays cannot fit device memory, route
         # out-of-core.  One week of 0.25-degree hourly ERA5 at 3 vars x
         # 5 levels is 15.6M rows — an in-memory f32 X alone is
         # 10.5 GB / device-share.
@@ -260,19 +285,19 @@ def resolve_svd_backend(
         t_cols = parsed_config.get("_matrix_cols")
         if not (have_flat and n_rows and t_cols):
             return False
+        budget_gb = device_memory_budget_gb(mesh)
+        if budget_gb is None:
+            return False
         # only the space axis splits one matrix's rows (data shards
         # independent fits and does not reduce per-device residency)
         space_shards = max(mesh.shape.get(AXIS_SPACE, 1), 1)
-        hbm_budget = float(
-            os.environ.get("DMD_ERA5_TPU_HBM_BUDGET_GB", 12.0)
-        )
         k = parsed_config.get("n_components", 0) + 28
         per_device = n_rows * d / space_shards * (t_cols + 2 * k) * 4
-        if per_device > hbm_budget * 1e9:
+        if per_device > budget_gb * 1e9:
             log_and_print(
                 logger,
                 f"matrix {n_rows * d} x {t_cols} exceeds the "
-                f"{hbm_budget:.0f} GB/device HBM budget in memory — "
+                f"{budget_gb:.0f} GB/device memory budget in memory — "
                 "routing svd_backend=auto to the out-of-core streamed "
                 "backend "
                 + (
@@ -340,6 +365,11 @@ def _svd_backend_hankel(
 
     x_flat = np.asarray(da_flat.data, dtype=np.float32)
     s_rows, t_cols = x_flat.shape
+    gemm_dtype = (
+        jnp.bfloat16
+        if parsed_config.get("precision") == "bfloat16"
+        else jnp.float32
+    )
     n_space_shards = mesh.shape.get(AXIS_SPACE, 1)
     n_time_shards = mesh.shape.get("time", 1)
     if parsed_config["svd_type"] != "randomized":
@@ -371,14 +401,8 @@ def _svd_backend_hankel(
             u = u.reshape(d, s_pad, -1)[:, :s_rows].reshape(d * s_rows, -1)
         return u, np.asarray(res.s), np.asarray(res.V)
     if mesh.devices.size == 1 or n_space_shards == 1:
-        # fused single-chip path: one Pallas pass per power iteration
-        # (ops.hankel.hankel_randomized_svd_fused); compute dtype from
-        # the stage precision config
-        gemm_dtype = (
-            jnp.bfloat16
-            if parsed_config.get("precision") == "bfloat16"
-            else jnp.float32
-        )
+        # fused single-chip path: one pass over X per power iteration
+        # (ops.hankel.hankel_randomized_svd_fused)
         res = hankel_randomized_svd_fused(
             jnp.asarray(x_flat), d, k, gemm_dtype=gemm_dtype
         )
@@ -386,7 +410,9 @@ def _svd_backend_hankel(
 
     xs, _ = shard_rows(x_flat, mesh)
     s_pad = xs.shape[0]
-    res = hankel_randomized_svd_sharded(xs, d, k, mesh, axis_name=AXIS_SPACE)
+    res = hankel_randomized_svd_sharded(
+        xs, d, k, mesh, axis_name=AXIS_SPACE, gemm_dtype=gemm_dtype
+    )
     u = np.asarray(res.U)
     if s_pad != s_rows:  # strip the pad rows inside each delay block
         u = u.reshape(d, s_pad, -1)[:, :s_rows].reshape(d * s_rows, -1)
@@ -403,7 +429,7 @@ def _svd_backend_grid2d(
     factorization wants the (space x time) grid.  The layout change is
     the Ulysses-style reshard (SURVEY.md section 2b): a jitted identity
     with a grid out-sharding, which XLA lowers to an all-to-all over
-    the ``time`` axis riding ICI — the device-side analogue of the
+    the ``time`` axis — the device-side analogue of the
     reference's nonexistent multi-GPU reshuffle.
 
     Rows and columns zero-pad up to the mesh axes; zero columns add
@@ -501,7 +527,7 @@ def _svd_backend_inmem_multihost(
     own (snapmat.loader.load_row_sharded), and the factorization runs
     on the global mesh.  The small factors come back replicated; the
     row-sharded U is all-gathered on device (replicated out-sharding)
-    for packaging — the same pattern a TPU pod uses over ICI.
+    for packaging.
     """
     from jax.experimental import multihost_utils
 

@@ -18,7 +18,7 @@ other stages (reads the ``era5-svd`` section; run as
 
 The reference has no incremental path at all — its era5_svd stage
 recomputes from scratch for every window (/root/reference/src/
-dmd_era5/era5_svd/era5_svd.py:336-452); this stage is the TPU-build
+dmd_era5/era5_svd/era5_svd.py:336-452); this stage is the
 extension that makes rolling ERA5 updates O(new columns).
 """
 

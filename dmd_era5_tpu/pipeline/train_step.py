@@ -26,8 +26,8 @@ Z = S_k V_k^T = Ub_k^T B and U orthonormal,
     ||Xc||^2 = ||X||^2 - T ||mu||^2.
 
 Everything is expressed with sharding constraints and jnp ops so GSPMD
-places the collectives (all-reduce over ICI for the contracted axes);
-the small k-sized factors are explicitly replicated.
+places the collectives (all-reduce for the contracted axes); the small
+k-sized factors are explicitly replicated.
 """
 
 from __future__ import annotations
@@ -91,23 +91,16 @@ def fit_step(
     Gaussian sketch, replicated.  x may be float32 or bfloat16 — the
     GEMMs run in ``gemm_dtype`` with float32 accumulation either way.
 
-    Dispatch: when the ``time`` axis is unsharded, each shard's rows
-    are complete, so the single-pass Pallas kernels run per shard
-    inside ``shard_map`` with a psum of the small G/C factors — the
-    multi-chip step pays the same 2 X-reads as the single-chip fused
-    path (:func:`fit_step_fused`).  A sharded time axis breaks the
-    kernel's in-epilogue centering (row means need a cross-shard
-    reduction before Yc exists), so that case takes the portable
-    GSPMD path where XLA places the time-axis collectives.
+    Dispatch depends on the mesh's ``time`` axis alone: when it is
+    unsharded, each shard's rows are complete, so the fused ingest pass
+    (ops.matmul.sketch_center_gram_project) runs per shard inside
+    ``shard_map`` with a psum of the small G/C factors — the same X
+    reads as the single-device :func:`fit_step_fused`.  A sharded time
+    axis breaks the in-pass centering (row means need a cross-shard
+    reduction before Yc exists), so that case takes the portable GSPMD
+    path where XLA places the time-axis collectives.
     """
-    # The Pallas kernels compile only for TPU meshes; on a non-TPU mesh
-    # they run in interpret mode, which is only valid when the process
-    # default backend is also non-TPU (a TPU plugin can be the default
-    # while a virtual CPU mesh runs the step — e.g. the driver's
-    # multi-chip dryrun — and Mosaic rejects CPU lowering there).
-    mesh_is_tpu = mesh.devices.flat[0].platform == "tpu"
-    fused_ok = mesh_is_tpu or jax.default_backend() != "tpu"
-    if mesh.shape.get(AXIS_TIME, 1) == 1 and fused_ok:
+    if mesh.shape.get(AXIS_TIME, 1) == 1:
         return _fit_step_fused_sharded(
             x, omega, mesh, n_components, gemm_dtype
         )
@@ -121,7 +114,7 @@ def _fit_step_fused_sharded(
     n_components: int,
     gemm_dtype=jnp.float32,
 ) -> FitState:
-    """shard_map fit step over (data, space): per-shard Pallas kernels.
+    """shard_map fit step over (data, space): per-shard fused ingest.
 
     Per (data, space) shard: one fully-fused sketch+center+Gram+project
     pass over the local X rows (ops.matmul.sketch_center_gram_project),
@@ -142,7 +135,7 @@ def _fit_step_fused_sharded(
                 xb.astype(gemm_dtype), om, out_dtype=gemm_dtype
             )
 
-        # vmap over the local batch entries (Pallas kernels are 2D)
+        # vmap over the local batch entries (the ingest pass is 2D)
         y, row_sum, row_sumsq, gram, c = jax.vmap(pass1)(x_loc)
         gram = lax.psum(gram, AXIS_SPACE)  # (B_loc, r, r) replicated
         c = lax.psum(c, AXIS_SPACE)  # (B_loc, r, T) replicated
@@ -191,8 +184,7 @@ def _fit_step_fused_sharded(
         g1 = jnp.einsum("bkt,bjt->bkj", z1, z1, preferred_element_type=jnp.float32, precision=HIGHEST)
         g12 = jnp.einsum("bkt,bjt->bkj", z2, z1, preferred_element_type=jnp.float32, precision=HIGHEST)
         eye = jnp.eye(g1.shape[-1], dtype=g1.dtype)
-        # g1 symmetric: GEMM-based SPD solve (TPU LU lowering is a
-        # sequential sweep — see utils.linalg.spd_solve)
+        # g1 symmetric: GEMM-based SPD solve (utils.linalg.spd_solve)
         a_red = spd_solve(
             g1 + 1e-6 * eye, g12.transpose(0, 2, 1)
         ).transpose(0, 2, 1)
@@ -241,10 +233,9 @@ def _fit_step_portable(
         return lax.with_sharding_constraint(v, NamedSharding(mesh, spec))
 
     def gemm(expr, a, b):
-        # precision=HIGHEST: the default f32 matmul on TPU is a single
-        # bf16 MXU pass, whose ~1e-2 error destroys the whitening /
-        # projection algebra on ill-conditioned data; the full-f32
-        # 3-pass cost hides behind HBM on these memory-bound GEMMs
+        # precision=HIGHEST: a default-precision f32 matmul may run in
+        # TF32 (~1e-3), which destroys the whitening / projection
+        # algebra on ill-conditioned data
         return jnp.einsum(
             expr,
             a.astype(gemm_dtype),
@@ -267,16 +258,12 @@ def _fit_step_portable(
     y = repl(y, P(AXIS_DATA, AXIS_SPACE, None))
 
     # --- orthonormalize via the Cholesky-QR route: G = Y^T Y (space
-    # psum), Q = Y chol(G)^-T.  Cholesky + trsm instead of eigh: TPU's
-    # eigh is a slow Jacobi iteration even at k ~ 100, while the trsm is
-    # one more MXU-shaped op over Y. ---
+    # psum), Q = Y chol(G)^-T ---
     gram = jnp.einsum("bsr,bsq->brq", y, y, preferred_element_type=jnp.float32, precision=HIGHEST)
     gram = repl(gram, small_spec)
-    # two-pass small-space whitener (utils.linalg.gram_whiten — wraps
-    # the Newton-refined tri_inv since TPU's trsm expansion is low
-    # precision); whitening applies with ONE GEMM: a right-side trsm
-    # over (S, r) lowers to a slow column sweep on TPU (measured ~5 ms
-    # at S=2^19, r=110 — 5x the GEMM)
+    # two-pass small-space whitener (utils.linalg.gram_whiten, Newton-
+    # refined tri_inv); whitening applies with ONE GEMM over (S, r)
+    # instead of a right-side trsm
     inv_chol = gram_whiten(gram, base_ridge=1e-6)
     q = jnp.einsum(
         "bsr,bpr->bsp", y, inv_chol, preferred_element_type=jnp.float32
@@ -328,18 +315,12 @@ def fit_step_fused(
     Returns an UNBATCHED FitState: u (S, k), s (k,), v (k, T),
     a_red (k, k), loss ().
 
-    Same math as :func:`fit_step`, but ONE Pallas pass over X produces
-    the *centered* sketch Yc, the centering statistics, the Gram matrix
-    Yc^T Yc AND the projection C = Yc^T X
-    (ops.matmul.sketch_center_gram_project) — the mean term is free
-    (c_mu = Yc^T mu = C @ 1/T since mu is the row mean of X).  Total
-    big-array traffic per step: one X read, one Yc write, one Yc read
-    (the skinny U lift), one U write.  Used on the per-chip hot path;
-    the mesh version stays in portable GSPMD ops.
-
-    Fast path: a sketch width that is a multiple of 128 lanes (e.g.
-    n_components=100 -> omega with 128 columns) — measured ~2x faster
-    than the sklearn-default k+10 oversampling width on v5e.
+    Same math as :func:`fit_step`, but ONE fused ingest pass
+    (ops.matmul.sketch_center_gram_project) produces the *centered*
+    sketch Yc, the centering statistics, the Gram matrix Yc^T Yc AND
+    the projection C = Yc^T X — the mean term is free (c_mu = Yc^T mu =
+    C @ 1/T since mu is the row mean of X).  Then the small algebra and
+    one skinny U lift over Yc.  Used on the single-device hot path.
 
     ``u_dtype`` sets the storage dtype of the returned POD basis U
     (default float32).  On the bf16-resident path U in bf16 halves the
@@ -347,10 +328,10 @@ def fit_step_fused(
     bounds the achievable mode accuracy at the same level.
 
     ``stats_from_sketch=True`` spends omega's LAST column on an
-    all-ones probe so the centering row sums ride the sketch dot on the
-    MXU instead of a VPU reduction (ops.matmul.sketch_center_gram_project
-    ``stats_col``) — the fast configuration when omega has >= k + 11
-    columns of margin; the effective Gaussian sketch width drops by 1.
+    all-ones probe so the centering row sums come out of the sketch
+    product (ops.matmul.sketch_center_gram_project ``stats_col``) —
+    needs omega with >= k + 11 columns of margin; the effective
+    Gaussian sketch width drops by 1.
     """
     y, sq_norm_xc, gram, c = fit_ingest_pass(
         x, omega, gemm_dtype=gemm_dtype,
@@ -374,7 +355,7 @@ def fit_step_lean(
     """Memory-lean fused fit: HBM holds exactly ONE extra S-sized array.
 
     Same math as :func:`fit_step_fused`, different residency: the
-    centered sketch Yc is never written to HBM (the fused kernel emits
+    centered sketch Yc is never written to HBM (the fused pass emits
     only G, C and the loss scalars), and the POD basis comes from a
     second plain GEMM against X with the centering FOLDED INTO the
     small lift matrix:
@@ -385,11 +366,8 @@ def fit_step_lean(
 
     — exact, and no per-row statistics are needed.  Per step: two X
     reads + one U write (vs one X read + one Yc write + one Yc read +
-    one U write for :func:`fit_step_fused`) — ~25% more HBM traffic,
-    but peak residency drops from X + Yc + U to X + U.  At the
-    0.25-degree ERA5 week (15.6M rows, bf16: every S-array is a 4 GB
-    tiling quantum and X spans two), fused needs 16 GB and OOMs a v5e;
-    lean runs in 12 GB.
+    one U write for :func:`fit_step_fused`), but peak residency drops
+    from X + Yc + U to X + U.
     """
     from dmd_era5_tpu.ops.matmul import sketch_center_gram_project
 
@@ -458,13 +436,12 @@ def fit_ingest_pass(
     stats_from_sketch: bool = False,
     t_valid: int | None = None,
 ):
-    """Stage 1 of the fused fit: ONE Pallas pass over X.
+    """Stage 1 of the fused fit: ONE fused ingest pass over X.
 
     Returns (Yc, ||Xc||^2, G, C).  Split from :func:`fit_reduce_lift`
-    so callers at the HBM edge can run the two halves as separate
-    programs: within one program a non-donated X stays resident for
-    the whole execution, and X (with its lane padding) + Yc + U
-    together exceed 16 GB at 15.6M rows x 168 columns.
+    so callers at the edge of device memory can run the two halves as
+    separate programs: within one program a non-donated X stays
+    resident for the whole execution.
     """
     from dmd_era5_tpu.ops.matmul import sketch_center_gram_project
 
@@ -472,11 +449,9 @@ def fit_ingest_pass(
     xg = x.astype(gemm_dtype)
 
     # bf16-resident path: Yc is stored bf16 too (halves the Yc traffic
-    # of the lift pass); the kernel computes G and C from the stored
-    # quantized Yc so the whitening stays exactly consistent
-    # scalar_stats: only two scalars of the row statistics survive into
-    # the loss, and the per-row (S, 2) stats buffer tiles 64x in HBM —
-    # reduce in-kernel instead (7.3 GB + write bandwidth at 15.6M rows)
+    # of the lift pass); G and C come from the stored quantized Yc so
+    # the whitening stays exactly consistent.  Only two scalars of the
+    # row statistics survive into the loss (scalar_stats).
     y, rs_sq_sum, sumsq_sum, gram, c = sketch_center_gram_project(
         xg,
         omega.astype(gemm_dtype),
@@ -502,29 +477,22 @@ def _reduced_factors(
     ``w_lift = W^T Ub`` (so U = Yc @ w_lift), the singular values and
     the FULL-width right vectors (caller slices columns).
 
-    method="hybrid" (DEFAULT — the TPU hot path, VERDICT r4 item 3):
-    CholQR whitener (Cholesky + Newton tri-inv — all GEMMs past the
-    one cheap Cholesky custom call) + ONE r x r ``eigh`` of K = B B^T
-    with B = W C.  One spectral custom call where cholqr has the
-    (r, T) SVD and eigh2 has two eighs.  Profiler-measured on v5e at
-    S=2^19, T=512, r=128 (scripts/small_algebra_ab.py + trace capture,
-    BASELINE.md round 5): **2.08 ms device step vs 2.42 (cholqr) and
-    2.48 (eigh2)** — pass 1 and the U lift are identical across
-    methods; the eigh custom call (0.415 ms) replaces the equally-
-    priced wide SVD while the Cholesky path is near-free.  Tail
-    semantics: forming K squares B's conditioning, so components below
-    ~sqrt(eps_f32) of s[0] are noise-floor and ``sqrt(max(., 0))``
-    damps them (shrunk tail, never spurious growth) — at or below the
-    randomized sketch's own tail error in every measured config;
-    parity pinned by tests/test_07_train_step.py.
+    method="hybrid" (DEFAULT): CholQR whitener (Cholesky + Newton
+    tri-inv — GEMMs past one r x r Cholesky) + ONE r x r ``eigh`` of
+    K = B B^T with B = W C.  One spectral decomposition where cholqr
+    has the (r, T) SVD and eigh2 has two eighs.  Which is fastest on
+    the GPU is not measured yet (ROADMAP A3).  Tail semantics: forming
+    K squares B's conditioning, so components below ~sqrt(eps_f32) of
+    s[0] are noise-floor and ``sqrt(max(., 0))`` damps them (shrunk
+    tail, never spurious growth); parity pinned by
+    tests/test_07_train_step.py.
 
     method="cholqr" keeps the original gram_whiten + wide-SVD route
     (the backward-stable option for pathological sketch conditioning:
     its B tail is exact rather than squared).
 
     method="eigh2": two r x r eighs (W = G^{-1/2} from eigh(G), then
-    eigh of W (C C^T) W) — kept for the measurement record; dominated
-    by hybrid on both time and stability.
+    eigh of W (C C^T) W).
     """
     if method == "cholqr":
         inv_chol = gram_whiten(gram, base_ridge=1e-6)
@@ -635,10 +603,9 @@ def fit_reduce_lift(
     )
     vt = vt[:n_components, :t_cols]
     # U = Q Ub = Y (W^T Ub): one skinny pass over Y.  The dot emits
-    # u_dtype DIRECTLY (MXU accumulation is f32 regardless; only the
-    # output rounds): a separate astype materializes BOTH the f32 and
-    # the converted U — at 15.6M rows that is an extra 6.2 GB buffer,
-    # the difference between fitting HBM and OOM.
+    # u_dtype DIRECTLY (accumulation is f32 regardless; only the output
+    # rounds): a separate astype would materialize BOTH the f32 and the
+    # converted U — an extra 6.2 GB buffer at 15.6M rows.
     out_t = jnp.float32 if u_dtype is None else u_dtype
     u = jnp.matmul(
         y,
@@ -658,9 +625,8 @@ def fit_reduce_lift(
     loss = jnp.sqrt(
         jnp.maximum(sq_norm_xc - sq_norm_z, 0.0) / (sq_norm_xc + 1e-12)
     )
-    # NOTE: unbatched (S, k)/(k,)/(k, T) leaves — adding a leading [None]
-    # batch dim here forced XLA to materialize a full copy of U
-    # (measured +2.5 ms at S=2^19 on v5e, ~50% of the whole step).
+    # unbatched (S, k)/(k,)/(k, T) leaves: a leading [None] batch dim
+    # here can make XLA materialize a full copy of U
     return FitState(u, s, vt, a_red, loss)
 
 

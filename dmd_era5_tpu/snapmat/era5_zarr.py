@@ -22,7 +22,6 @@ from __future__ import annotations
 from datetime import datetime
 from pathlib import Path
 
-import h5py
 import numpy as np
 
 from dmd_era5_tpu.core.logging import log_and_print, setup_logger
@@ -197,6 +196,8 @@ def zarr_to_packed(
 
     Returns (n_rows, n_cols) of the packed matrix.
     """
+    import h5py
+
     from dmd_era5_tpu.native import pack_space_time
 
     group = open_era5_zarr(source)

@@ -18,7 +18,6 @@ from __future__ import annotations
 from pathlib import Path
 from typing import NamedTuple
 
-import h5py
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -94,6 +93,8 @@ def save_packed_snapshot(
     row_chunk: int = 4096,
 ) -> None:
     """Persist the packed matrix with row-chunked layout for shard reads."""
+    import h5py
+
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     with h5py.File(path, "w") as f:
@@ -129,6 +130,8 @@ def save_packed_matrix(
 
     Returns the packed (rows, cols).
     """
+    import h5py
+
     if x.ndim != 2:
         raise ValueError("save_packed_matrix expects a 2-D (space, time) array")
     s_rows, t_cols = x.shape
@@ -157,6 +160,8 @@ def save_packed_matrix(
 
 
 def packed_info(path: str | Path) -> tuple[tuple[int, int], SnapshotMeta, bool]:
+    import h5py
+
     with h5py.File(path, "r") as f:
         shape = f["X"].shape
         bf16 = bool(f.attrs.get("bf16", 0))
@@ -180,6 +185,8 @@ def packed_info(path: str | Path) -> tuple[tuple[int, int], SnapshotMeta, bool]:
 
 def read_packed_rows(path: str | Path, r0: int, r1: int) -> np.ndarray:
     """Contiguous row-block hyperslab read (a shard's local rows)."""
+    import h5py
+
     with h5py.File(path, "r") as f:
         return f["X"][r0:r1, :]
 

@@ -5,7 +5,7 @@ Capability parity with the reference mock backend
 a 5-degree global grid (36 lat x 72 lon) with hourly snapshots and
 per-variable synthetic structure, plus :func:`create_mock_era5_svd`,
 which runs the *real* preprocessing chain followed by an exact truncated
-SVD — the allclose oracle for the distributed TPU pipeline.
+SVD — the allclose oracle for the distributed device pipeline.
 """
 
 from __future__ import annotations
@@ -13,7 +13,6 @@ from __future__ import annotations
 from datetime import datetime
 
 import numpy as np
-import pandas as pd
 
 from dmd_era5_tpu.core.logging import log_and_print, setup_logger
 from dmd_era5_tpu.snapmat.transform import (
@@ -71,7 +70,10 @@ def create_mock_era5(
     in steps of 5 (72 points).  ``seed`` (an extension over the
     reference) gives deterministic data for reproducible tests.
     """
-    times = pd.date_range(start=start_datetime, end=end_datetime, freq="h")
+    hour = np.timedelta64(1, "h")
+    start = np.datetime64(start_datetime).astype("datetime64[ns]")
+    end = np.datetime64(end_datetime).astype("datetime64[ns]")
+    times = np.arange(start, end + np.timedelta64(1, "ns"), hour)  # end inclusive
     lats = np.arange(90, -90, -_LAT_STEP)
     lons = np.arange(-180, 180, _LON_STEP)
     rng = np.random.default_rng(seed) if seed is not None else None
@@ -86,7 +88,7 @@ def create_mock_era5(
             data,
             dims=("time", "level", "latitude", "longitude"),
             coords={
-                "time": Coord("time", times.values),
+                "time": Coord("time", times),
                 "level": Coord("level", np.asarray(levels)),
                 "latitude": Coord("latitude", lats),
                 "longitude": Coord("longitude", lons),

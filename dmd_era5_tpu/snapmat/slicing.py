@@ -13,7 +13,6 @@ from __future__ import annotations
 from datetime import datetime, timedelta
 
 import numpy as np
-import pandas as pd
 
 from dmd_era5_tpu.core.logging import log_and_print, setup_logger
 from dmd_era5_tpu.utils.labels import FieldSet
@@ -33,10 +32,8 @@ def _times_of(fs: FieldSet) -> np.ndarray:
 
 def dataset_time_bounds(fs: FieldSet) -> tuple[datetime, datetime]:
     """First/last timestamps of the FieldSet as python datetimes."""
-    times = _times_of(fs)
-    first = pd.Timestamp(times[0]).to_pydatetime()
-    last = pd.Timestamp(times[-1]).to_pydatetime()
-    return first, last
+    times = _times_of(fs).astype("datetime64[us]")
+    return times[0].item(), times[-1].item()
 
 
 def slice_era5_dataset(
@@ -111,13 +108,9 @@ def resample_era5_dataset(fs: FieldSet, delta_time: timedelta) -> FieldSet:
     nearest source snapshot.
     """
     times = _times_of(fs)
-    targets = pd.date_range(
-        start=pd.Timestamp(times[0]),
-        end=pd.Timestamp(times[-1]),
-        freq=delta_time,
-    ).values
     src = times.astype("datetime64[ns]").astype(np.int64)
-    tgt = targets.astype("datetime64[ns]").astype(np.int64)
+    step = np.timedelta64(delta_time).astype("timedelta64[ns]").astype(np.int64)
+    tgt = np.arange(src[0], src[-1] + 1, step)  # end inclusive
     pos = np.searchsorted(src, tgt)
     pos = np.clip(pos, 0, len(src) - 1)
     left = np.clip(pos - 1, 0, len(src) - 1)

@@ -5,7 +5,7 @@ These reproduce the numerical semantics of the reference array toolkit
 :class:`Field`/:class:`FieldSet` containers, with the delay embedding
 reformulated as d shifted column-views of the snapshot matrix instead of
 a materialized ``sliding_window_view`` Hankel copy — the form the fused
-TPU kernels consume (see dmd_era5_tpu.ops.hankel).
+operators consume (see dmd_era5_tpu.ops.hankel).
 
 Layout contract (load-bearing for every consumer downstream):
 - flatten stacks space as (level, latitude, longitude), row-major, and

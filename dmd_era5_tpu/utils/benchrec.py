@@ -7,7 +7,7 @@ driver measures a different subset of metrics, so the writer MUST merge
 by metric name rather than rewrite the file wholesale: a wholesale
 ``json.dump`` from one driver silently deletes every entry the other
 driver owns.  (That exact bug destroyed the round-4 week-scale records
-— VERDICT r4 "What's weak" item 1.)
+— review r4 "What's weak" item 1.)
 
 Entries whose keys start with ``_`` are working fields (full singular
 values, open handles) and are stripped before writing.

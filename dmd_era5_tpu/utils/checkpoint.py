@@ -1,7 +1,7 @@
 """Pytree checkpointing to HDF5.
 
 Checkpoint/resume for long iterative solves (SURVEY.md section 5: the
-reference's only "resume" is artifact caching; the TPU build adds
+reference's only "resume" is artifact caching; this build adds
 in-run checkpoints inside the LM variable-projection solver, see
 models.optdmd.varpro_lm_checkpointed).  Flat pytrees of arrays/scalars
 are stored with their tree structure, so restore returns the exact
@@ -13,7 +13,6 @@ from __future__ import annotations
 import json
 from pathlib import Path
 
-import h5py
 import jax
 import numpy as np
 
@@ -22,6 +21,8 @@ __all__ = ["save_pytree", "load_pytree"]
 
 def save_pytree(path: str | Path, tree, metadata: dict | None = None) -> None:
     """Write a pytree of arrays/scalars to an HDF5 checkpoint."""
+    import h5py
+
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     leaves, treedef = jax.tree_util.tree_flatten(tree)
@@ -38,6 +39,8 @@ def save_pytree(path: str | Path, tree, metadata: dict | None = None) -> None:
 def load_pytree(path: str | Path, like=None):
     """Load a checkpoint; with ``like`` given, restore its tree structure
     (leaves replaced by the stored arrays, in flatten order)."""
+    import h5py
+
     path = Path(path)
     with h5py.File(path, "r") as f:
         n = int(f.attrs["n_leaves"])

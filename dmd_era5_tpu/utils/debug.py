@@ -1,6 +1,6 @@
 """Numerical-safety and determinism checks.
 
-The TPU-build analogue of the reference's "sanitizers" (SURVEY.md
+The analogue of the reference's "sanitizers" (SURVEY.md
 section 5: warnings-as-errors + mypy only): NaN trapping via JAX debug
 flags, finiteness assertions over pytrees, and a determinism harness
 that reruns a function and compares checksums — the practical test for
@@ -74,5 +74,5 @@ def check_deterministic(fn: Callable, *args, runs: int = 2) -> bool:
 
 
 def enable_float64() -> None:
-    """Opt into float64 on CPU oracles (never on the TPU hot path)."""
+    """Opt into float64 on CPU oracles (never on the device hot path)."""
     jax.config.update("jax_enable_x64", True)

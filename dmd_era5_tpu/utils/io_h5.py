@@ -25,6 +25,12 @@ artifacts unmodified:
 ``load_fieldset`` reads both this layout and the legacy grouped layout
 (``/vars`` + ``/coords``) from earlier artifacts.
 
+h5py is imported lazily.  Where it is not installed, ``save_fieldset``
+writes the same FieldSet as an ``.npz`` container (numpy only: arrays
+plus a JSON manifest of dims, coords and attrs) under the same path, and
+``load_fieldset`` recognizes either format by its magic bytes.  Such a
+file is not netCDF-readable.
+
 Tuple-valued coordinates are not serializable (same restriction NetCDF
 has) — callers run ``space_coord_to_level_lat_lon`` first, exactly as
 the reference does before saving (era5_svd.py:425).
@@ -36,7 +42,6 @@ import json
 from pathlib import Path
 from typing import Any
 
-import h5py
 import numpy as np
 
 from dmd_era5_tpu.utils.labels import Coord, Field, FieldSet
@@ -60,7 +65,17 @@ _RESERVED_ATTRS = {
 }
 
 
+def _have_h5py() -> bool:
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
 def _encode_attr(value: Any):
+    import h5py
+
     if isinstance(value, (list, tuple)):
         if all(isinstance(v, str) for v in value):
             return np.asarray(value, dtype=h5py.string_dtype())
@@ -75,6 +90,8 @@ def _encode_attr(value: Any):
 
 
 def _decode_attr(value: Any):
+    import h5py
+
     if isinstance(value, bytes):
         value = value.decode()
     if isinstance(value, str):
@@ -93,6 +110,8 @@ def _decode_attr(value: Any):
 
 
 def _encode_array(values: np.ndarray) -> tuple[np.ndarray, dict]:
+    import h5py
+
     meta: dict[str, Any] = {}
     if values.dtype.kind == "M":  # datetime64
         meta["units"] = _TIME_UNIT
@@ -105,6 +124,8 @@ def _encode_array(values: np.ndarray) -> tuple[np.ndarray, dict]:
 
 
 def _decode_array(ds: h5py.Dataset) -> np.ndarray:
+    import h5py
+
     values = ds[()]
     if ds.attrs.get("units") == _TIME_UNIT or (
         isinstance(ds.attrs.get("units"), bytes)
@@ -120,27 +141,40 @@ def _decode_array(ds: h5py.Dataset) -> np.ndarray:
 
 
 def _str_list_attr(values) -> np.ndarray:
+    import h5py
+
     return np.asarray(list(values), dtype=h5py.string_dtype())
+
+
+def _collect_coords(fs: FieldSet) -> dict[str, Coord]:
+    """Union of the fields' coords, consistency-checked."""
+    coords: dict[str, Coord] = {}
+    for field in fs.data_vars.values():
+        for cname, coord in field.coords.items():
+            if cname in coords:
+                if not (coords[cname] == coord):
+                    raise ValueError(
+                        f"Inconsistent coord {cname!r} across fields"
+                    )
+            else:
+                coords[cname] = coord
+    return coords
 
 
 def save_fieldset(fs: FieldSet, path: str | Path) -> None:
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
+    if not _have_h5py():
+        _save_npz(fs, path)
+        return
+    import h5py
+
+    coords = _collect_coords(fs)
     with h5py.File(path, "w") as f:
         for key, value in fs.attrs.items():
             f.attrs[key] = _encode_attr(value)
 
-        # ---- collect coords (consistency-checked) and dim sizes ----
-        coords: dict[str, Coord] = {}
-        for field in fs.data_vars.values():
-            for cname, coord in field.coords.items():
-                if cname in coords:
-                    if not (coords[cname] == coord):
-                        raise ValueError(
-                            f"Inconsistent coord {cname!r} across fields"
-                        )
-                else:
-                    coords[cname] = coord
+        # ---- dim sizes ----
         dim_sizes: dict[str, int] = {}
         for field in fs.data_vars.values():
             for d, n in zip(field.dims, np.asarray(field.data).shape):
@@ -249,6 +283,11 @@ def _dims_of(ds: h5py.Dataset, fallback: str) -> tuple[str, ...]:
 
 
 def load_fieldset(path: str | Path) -> FieldSet:
+    with open(path, "rb") as f:
+        if f.read(4) == _NPZ_MAGIC:
+            return _load_npz(path)
+    import h5py
+
     with h5py.File(path, "r") as f:
         if "vars" in f and isinstance(f["vars"], h5py.Group):
             return _load_legacy(f)
@@ -304,3 +343,108 @@ def load_fieldset(path: str | Path) -> FieldSet:
                 _decode_array(ds), dims, field_coords, field_attrs, name
             )
     return FieldSet(data_vars, attrs=attrs)
+
+
+# ---------------------------------------------- numpy-only container
+
+_NPZ_MAGIC = b"PK\x03\x04"  # zip local-file header: every .npz
+
+
+def _json_value(value: Any):
+    """JSON form of a nested attr value (complex and arrays tagged)."""
+    if isinstance(value, np.ndarray):
+        return {"__nd__": _json_value(value.tolist()), "dtype": value.dtype.str}
+    if isinstance(value, np.generic):
+        value = value.item()
+    if isinstance(value, complex):
+        return {"__complex__": [value.real, value.imag]}
+    if isinstance(value, (list, tuple)):
+        return [_json_value(v) for v in value]
+    if isinstance(value, dict):
+        return {str(k): _json_value(v) for k, v in value.items()}
+    return value
+
+
+def _from_json(value: Any):
+    if isinstance(value, dict):
+        if "__nd__" in value:
+            return np.asarray(_from_json(value["__nd__"]), dtype=value["dtype"])
+        if "__complex__" in value:
+            return complex(*value["__complex__"])
+        return {k: _from_json(v) for k, v in value.items()}
+    if isinstance(value, list):
+        return [_from_json(v) for v in value]
+    return value
+
+
+def _npz_attrs(attrs: dict) -> dict:
+    """Top-level attr normalization of the HDF5 path: bools as ints,
+    non-string lists as arrays."""
+    out = {}
+    for key, value in attrs.items():
+        if isinstance(value, bool):
+            value = int(value)
+        elif isinstance(value, (list, tuple)) and not all(
+            isinstance(v, str) for v in value
+        ):
+            value = np.asarray(value)
+        out[key] = _json_value(value)
+    return out
+
+
+def _npz_array(values) -> np.ndarray:
+    values = np.asarray(values)
+    if values.dtype.kind == "O":
+        return np.asarray(
+            [str(v) for v in values.ravel()], dtype=str
+        ).reshape(values.shape)
+    return values
+
+
+def _npz_restore(values: np.ndarray) -> np.ndarray:
+    if values.dtype.kind == "U":  # strings come back as objects (HDF5 parity)
+        return values.astype(object)
+    return values
+
+
+def _save_npz(fs: FieldSet, path: Path) -> None:
+    coords = _collect_coords(fs)
+    manifest = {
+        "attrs": _npz_attrs(fs.attrs),
+        "coords": {c: list(coord.dims) for c, coord in coords.items()},
+        "vars": {
+            name: {
+                "dims": list(field.dims),
+                "coords": list(field.coords),
+                "attrs": _npz_attrs(field.attrs),
+            }
+            for name, field in fs.data_vars.items()
+        },
+    }
+    arrays = {f"c/{c}": _npz_array(coord.values) for c, coord in coords.items()}
+    arrays.update(
+        {f"v/{n}": _npz_array(field.data) for n, field in fs.data_vars.items()}
+    )
+    arrays["manifest"] = np.asarray(json.dumps(manifest))
+    with open(path, "wb") as f:  # a file object: savez adds no suffix
+        np.savez(f, **arrays)
+
+
+def _load_npz(path: str | Path) -> FieldSet:
+    with np.load(path, allow_pickle=False) as z:
+        manifest = json.loads(str(z["manifest"]))
+        coords = {
+            c: Coord(tuple(dims), _npz_restore(z[f"c/{c}"]))
+            for c, dims in manifest["coords"].items()
+        }
+        data_vars = {
+            name: Field(
+                _npz_restore(z[f"v/{name}"]),
+                tuple(meta["dims"]),
+                {c: coords[c] for c in meta["coords"]},
+                _from_json(meta["attrs"]),
+                name,
+            )
+            for name, meta in manifest["vars"].items()
+        }
+    return FieldSet(data_vars, attrs=_from_json(manifest["attrs"]))

@@ -1,7 +1,8 @@
-"""Linear-algebra helpers for TPU backends.
+"""Linear-algebra helpers for the small replicated factors.
 
-TPU XLA has no on-device nonsymmetric eigendecomposition and no complex
-LU, so:
+The solvers avoid an on-device nonsymmetric eigendecomposition and
+complex LU (the first target had neither; whether the GPU still needs
+the detour is ROADMAP A6/C6), so:
 
 - :func:`eig_host` routes the tiny replicated r x r eigenproblem through
   a host callback (numpy LAPACK).  r is the DMD rank — tens to a couple
@@ -62,14 +63,14 @@ def safe_cholesky(
 def tri_inv(t: jax.Array, lower: bool = True, refine: int = 2) -> jax.Array:
     """Inverse of a (batched) triangular factor, Newton-refined.
 
-    XLA:TPU expands TriangularSolve into blocked approximate matmul
-    passes — measured 2.6e-2 relative error on a cond ~1e3 Cholesky
-    factor on v5e, which silently destroys CholQR whitening on
+    A triangular solve whose products run at reduced matmul precision
+    leaves percent-level error on a cond ~1e3 Cholesky factor, which
+    silently destroys CholQR whitening on
     ill-conditioned sketches (the reference's np.linalg path at
     /root/reference/src/dmd_era5/era5_svd/era5_svd.py:251 has no such
     failure mode, so we must not either).  Each Newton step
     Z <- Z + Z(I - T Z) squares the residual with two small
-    HIGHEST-precision GEMMs; two steps take 2.6e-2 -> f32 roundoff.
+    HIGHEST-precision GEMMs; two steps take 1e-2 -> f32 roundoff.
     """
     n = t.shape[-1]
     eye = jnp.eye(n, dtype=t.dtype)
@@ -136,12 +137,11 @@ def gram_whiten(g: jax.Array, base_ridge: float = 1e-6) -> jax.Array:
 
 
 def orth_small(z: jax.Array, base_ridge: float = 1e-6) -> jax.Array:
-    """Orthonormalize a tall matrix via Gram whitening — all MXU work.
+    """Orthonormalize a tall matrix via Gram whitening — GEMM work.
 
     The intermediate re-orthonormalization of subspace/power iterations:
-    ``jnp.linalg.qr`` lowers to a slow sequential Householder sweep on
-    TPU, while Q = Z W^T with W = :func:`gram_whiten`(Z^T Z) is two
-    small GEMMs + k x k factorizations.  Subspace-exact; orthogonality
+    Q = Z W^T with W = :func:`gram_whiten`(Z^T Z) is two small GEMMs +
+    k x k factorizations, where a Householder QR is a sequential sweep.  Subspace-exact; orthogonality
     at CholQR2 quality — the conventional trade for *intermediate*
     normalizers (sklearn's randomized_svd uses LU there); keep a true
     QR where an R factor or backward-stable basis is required.
@@ -171,8 +171,8 @@ def eig_host(a: jax.Array) -> tuple[jax.Array, jax.Array]:
         order = np.argsort(-np.abs(w), kind="stable")
         w = w[..., order].astype(np.complex64)
         v = v[..., :, order].astype(np.complex64)
-        # return real/imag stacked: complex arrays cannot be transferred
-        # to every TPU backend, only constructed on device
+        # return real/imag stacked: complex arrays are built on device
+        # from real parts, never transferred
         return (
             np.stack([w.real, w.imag], -1).astype(np.float32),
             np.stack([v.real, v.imag], -1).astype(np.float32),
@@ -180,9 +180,8 @@ def eig_host(a: jax.Array) -> tuple[jax.Array, jax.Array]:
 
     if not isinstance(a, jax.core.Tracer):
         # Eager path: call LAPACK directly and return HOST complex
-        # arrays (device_put of complex is Unimplemented on some TPU
-        # backends; pure_callback on a mesh-committed array also trips
-        # GSPMD->Shardy).
+        # arrays (no complex device transfer; pure_callback on a
+        # mesh-committed array also trips GSPMD->Shardy).
         w2, v2 = _eig(jax.device_get(a))
         return (
             w2[..., 0] + 1j * w2[..., 1],
@@ -211,12 +210,10 @@ def _to_real_block(a: jax.Array) -> jax.Array:
 def spd_solve(a: jax.Array, b: jax.Array) -> jax.Array:
     """Solve A X = B for symmetric positive-definite A, GEMM-based.
 
-    TPU's general ``jnp.linalg.solve`` lowers LU + TriangularSolve to
-    slow sequential column sweeps (the hazard :func:`tri_inv`
-    documents); for the SPD systems this package actually solves —
-    normal-equation Grams and LM-damped J^T J — Cholesky plus the
-    refinement-corrected triangular inverse keeps everything on the
-    MXU: X = W^T (W B) with W = L^-1.
+    For the SPD systems this package solves — normal-equation Grams
+    and LM-damped J^T J — Cholesky plus the refinement-corrected
+    triangular inverse (:func:`tri_inv`) turns the solve into GEMMs:
+    X = W^T (W B) with W = L^-1, instead of LU + triangular sweeps.
     """
     hi = jax.lax.Precision.HIGHEST
     w = tri_inv(jnp.linalg.cholesky(a))
@@ -229,7 +226,7 @@ def complex_solve(a: jax.Array, b: jax.Array, hpd: bool = False) -> jax.Array:
 
     ``hpd=True`` asserts A is Hermitian positive-definite (its real
     block form is then symmetric PD) and takes the GEMM-based
-    :func:`spd_solve` instead of the slow TPU LU lowering.
+    :func:`spd_solve` instead of an LU.
     """
     n = a.shape[-1]
     b2 = jnp.concatenate([jnp.real(b), jnp.imag(b)], axis=-2)
@@ -249,10 +246,9 @@ def complex_lstsq(
     all backends.
     """
     hi = jax.lax.Precision.HIGHEST
-    # HIGHEST: the default f32 matmul precision on TPU is ONE bf16 pass
-    # (~1e-3 relative error) and this Gram is numerically load-bearing
-    # for the varpro amplitude fit (tpu_verify's optDMD residual check
-    # sat at 1.15e-3 with the default, 1e-6 with HIGHEST).
+    # HIGHEST: a default-precision f32 matmul may run in TF32 (~1e-3
+    # relative error) and this Gram is numerically load-bearing for the
+    # varpro amplitude fit (the optDMD residual check).
     ah = jnp.conjugate(jnp.swapaxes(a, -1, -2))
     gram = jnp.matmul(ah, a, precision=hi)
     if rcond_ridge:

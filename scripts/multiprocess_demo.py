@@ -2,7 +2,7 @@
 
 Launches (or participates in) an N-process JAX cluster over local CPU
 collectives (gloo) — the same ``jax.distributed.initialize`` + global
-mesh + shard_map code path a TPU pod uses over ICI/DCN, so the
+mesh + shard_map code path a multi-host cluster uses, so the
 framework's multi-host story is exercisable on one machine:
 
     python scripts/multiprocess_demo.py            # launches 2 workers

@@ -7,7 +7,7 @@ The ingest stage exists to read ONE store — ARCO-ERA5 at
 /root/reference/src/dmd_era5/era5_download/era5_download.py:81-83) —
 but round-4 tests exercised the Zarr reader only against stores written
 by the repo's own ``write_zarr_array``, so reader and writer shared
-assumptions by construction (VERDICT r4 item 5).  These fixtures pin
+assumptions by construction (review r4 item 5).  These fixtures pin
 the ARCO layout *independently*:
 
 1. ``arco_era5_fullscale.zmetadata.json`` — a consolidated ``.zmetadata``

@@ -190,7 +190,7 @@ def test_optdmd_beats_exact_dmd_on_noisy_data(rng):
 
 
 def test_optdmd_from_distributed_svd(rng):
-    """Full TPU-composition: sharded SVD feeds the varpro solver."""
+    """Full composition: sharded SVD feeds the varpro solver."""
     mesh = make_mesh()
     x, t, alpha_true = make_linear_system(rng, s_dim=512, n_t=48)
     xs, _ = shard_rows(x, mesh)

@@ -90,7 +90,7 @@ def test_h5_string_coords_roundtrip():
 
 
 def test_h5_layout_is_netcdf4_compatible():
-    """Structural check of the netCDF4-on-HDF5 conventions (VERDICT r1
+    """Structural check of the netCDF4-on-HDF5 conventions (review r1
     item 10): root-level variables, dimension scales attached via
     DIMENSION_LIST, hidden scales for coordinate-less dims, CF
     ``coordinates`` listing for auxiliary coords, CF time units —

@@ -143,8 +143,8 @@ def test_fit_step_fused_matches_mesh_version(rng):
 
 
 def test_fit_step_sharded_fused_matches_single(rng):
-    """time-unsharded meshes take the shard_map Pallas path: per-shard
-    fused sketch+Gram / projection kernels, psum of the small factors.
+    """time-unsharded meshes take the shard_map path: per-shard fused
+    sketch+Gram / projection pass, psum of the small factors.
     Must agree with the single-device run."""
     mesh = make_mesh("data=2,space=4")
     assert mesh.shape["time"] == 1
@@ -343,7 +343,7 @@ def test_fit_step_fused_t_valid_column_padding(rng):
 
 def test_fit_step_fused_small_algebra_eigh2(rng):
     """small_algebra='eigh2' (two r x r eighs, no Cholesky/tri_inv/wide
-    SVD custom calls — the headline-step candidate, VERDICT r4 item 3)
+    SVD custom calls — the headline-step candidate, review r4 item 3)
     matches the numpy oracle and the cholqr route within the eigh
     sensitivity floor (~1e-3 relative on mid-spectrum values)."""
     from dmd_era5_tpu.pipeline.train_step import fit_step_fused
@@ -478,7 +478,7 @@ def test_eigh2_ill_conditioned_damps_not_explodes(rng):
 
 
 def test_stats_col_with_t_valid_dead_column(rng):
-    """stats_col + t_valid combined (ADVICE r4): the ones column's pad
+    """stats_col + t_valid combined (review r4): the ones column's pad
     rows must be zeroed so colw[-1] == t_valid and the stats column of
     Yc dies exactly — otherwise it carries a rowsum-proportional residue
     into G and C."""

@@ -1,7 +1,5 @@
-"""Pallas kernels + Hankel operators: correctness tier.
-
-On CPU the Pallas kernels run in interpreter mode; the same code
-compiles via Mosaic on TPU (exercised by bench.py on hardware).
+"""The fused ingest pass, Gram/QR panels and Hankel operators:
+correctness against numpy float64.
 """
 
 from __future__ import annotations
@@ -17,36 +15,115 @@ from dmd_era5_tpu.ops.hankel import (
     hankel_sketch,
     hankel_sketch_time_sharded,
 )
-from dmd_era5_tpu.ops.matmul import matmul
+from dmd_era5_tpu.ops.matmul import sketch_center_gram_project
 from dmd_era5_tpu.ops.qr_panel import cholqr, cholqr2, gram
 from dmd_era5_tpu.parallel import make_mesh
 from dmd_era5_tpu.snapmat import delay_embed_np
 
-# ----------------------------------------------------------------- matmul
+# ------------------------------------------------------- fused ingest pass
 
 
-def test_pallas_matmul_matches_xla(rng):
-    x = rng.standard_normal((1024, 512)).astype(np.float32)
-    w = rng.standard_normal((512, 256)).astype(np.float32)
-    out = np.asarray(matmul(jnp.asarray(x), jnp.asarray(w)))
-    np.testing.assert_allclose(out, x @ w, rtol=1e-5, atol=1e-3)
+def _ingest_oracle(x, w, center, stats_col, t_valid, out_dtype):
+    """numpy float64 form of sketch_center_gram_project."""
+    x64 = np.asarray(x, np.float64)
+    w64 = np.asarray(w, np.float64).copy()
+    if stats_col:
+        w64[:, -1] = 1.0
+        if t_valid is not None:
+            w64[t_valid:, -1] = 0.0
+    t_true = t_valid if t_valid is not None else x.shape[1]
+    rs, ssq = x64.sum(axis=1), (x64 * x64).sum(axis=1)
+    y = x64 @ w64
+    if center:
+        y = y - np.outer(rs / t_true, w64.sum(axis=0))
+    # G and C come from the STORED Yc: quantize like the pass does
+    yq = np.asarray(jnp.asarray(y.astype(np.float32)).astype(out_dtype), np.float64)
+    return yq, rs, ssq, yq.T @ yq, yq.T @ x64
 
 
-def test_pallas_matmul_bf16_inputs(rng):
-    x = rng.standard_normal((512, 512)).astype(np.float32)
-    w = rng.standard_normal((512, 128)).astype(np.float32)
-    out = np.asarray(
-        matmul(jnp.asarray(x, jnp.bfloat16), jnp.asarray(w, jnp.bfloat16))
+# (rows, T, N, dtype, center, stats_col, scalar_stats, t_valid, emit_yc)
+_INGEST_CASES = [
+    (1024, 256, 128, "float32", True, False, False, None, True),
+    (648, 24, 8, "float32", True, False, False, None, True),  # ragged rows
+    (512, 512, 64, "float32", True, False, False, None, True),  # long T
+    (1000, 96, 32, "float32", False, False, False, None, True),
+    (1000, 96, 32, "float32", True, True, False, None, True),
+    (1000, 96, 32, "float32", True, False, True, None, True),
+    (1000, 96, 32, "float32", True, False, True, None, False),
+    (777, 64, 16, "float32", True, False, False, 40, True),
+    (777, 64, 16, "float32", True, True, True, 40, False),
+    (2048, 168, 128, "bfloat16", True, False, False, None, True),
+    (2048, 168, 128, "bfloat16", True, True, True, None, True),
+    (1500, 168, 128, "bfloat16", False, False, False, None, True),
+]
+
+
+@pytest.mark.parametrize(
+    "m,t,n,dtype,center,stats_col,scalar_stats,t_valid,emit_yc", _INGEST_CASES
+)
+def test_sketch_center_gram_project_matches_f64(
+    rng, m, t, n, dtype, center, stats_col, scalar_stats, t_valid, emit_yc
+):
+    dt = jnp.dtype(dtype)
+    x = rng.standard_normal((m, t)).astype(np.float32)
+    if t_valid is not None:
+        x[:, t_valid:] = 0.0  # zero time padding
+    w = rng.standard_normal((t, n)).astype(np.float32)
+    xq = np.asarray(jnp.asarray(x).astype(dt), np.float32)  # stored values
+    wq = np.asarray(jnp.asarray(w).astype(dt), np.float32)
+    yc, rs, ssq, g, c = sketch_center_gram_project(
+        jnp.asarray(xq).astype(dt), jnp.asarray(wq).astype(dt),
+        out_dtype=dt, center=center, stats_col=stats_col,
+        scalar_stats=scalar_stats, t_valid=t_valid, emit_yc=emit_yc,
     )
-    assert out.dtype == np.float32
-    np.testing.assert_allclose(out, x @ w, rtol=5e-2, atol=2.0)
+    y_o, rs_o, ssq_o, g_o, c_o = _ingest_oracle(
+        xq, wq, center, stats_col, t_valid, dt
+    )
+    # f32 products at HIGHEST are ~1e-6 relative; bf16 inputs with f32
+    # accumulation add a bf16 rounding of the stored Yc (~4e-3)
+    tol = 1e-5 if dtype == "float32" else 2e-2
+
+    def close(got, want):
+        got = np.asarray(got, np.float64)
+        scale = max(np.abs(want).max(), 1e-30)
+        assert np.abs(got - want).max() <= tol * scale, (
+            np.abs(got - want).max() / scale
+        )
+
+    if emit_yc:
+        assert yc.shape == (m, n) and yc.dtype == dt
+        close(yc, y_o)
+    else:
+        assert yc is None
+    if scalar_stats:
+        close(rs, np.sum(rs_o**2))
+        close(ssq, np.sum(ssq_o))
+    else:
+        assert rs.shape == (m,) and ssq.shape == (m,)
+        close(rs, rs_o)
+        close(ssq, ssq_o)
+    assert g.shape == (n, n) and c.shape == (n, t)
+    close(g, g_o)
+    close(c, c_o)
 
 
-def test_pallas_matmul_shape_guard(rng):
-    x = jnp.zeros((600, 512))  # 600 not divisible by the 512 block
-    w = jnp.zeros((512, 128))
-    with pytest.raises(AssertionError, match="not divisible"):
-        matmul(x, w)
+@pytest.mark.parametrize("m", [768, 1009, 100])  # divisor / padded / one GEMM
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_row_contract_blocked_matches_f64(rng, monkeypatch, m, dtype):
+    """Row contractions summed over row-block partials (a divisor block
+    where one exists, else zero padding) equal the one-shot product."""
+    from dmd_era5_tpu.ops import matmul
+
+    monkeypatch.setattr(matmul, "_ROW_BLOCK", 64)
+    assert matmul._row_block(768) == 64 and matmul._row_block(1009) == 64
+    assert matmul._row_block(1000) == 50
+    assert matmul._row_block(100) == 100
+    a = jnp.asarray(rng.standard_normal((m, 24)), dtype)
+    b = jnp.asarray(rng.standard_normal((m, 9)), dtype)
+    want = np.asarray(a, np.float64).T @ np.asarray(b, np.float64)
+    got = np.asarray(matmul.row_contract(a, b), np.float64)
+    assert got.dtype == np.float64 and got.shape == (24, 9)
+    np.testing.assert_allclose(got, want, atol=1e-5 * np.abs(want).max())
 
 
 # --------------------------------------------------------------- qr panel
@@ -242,27 +319,30 @@ def test_hankel_randomized_svd_2d_column_padding(rng):
     )
 
 
-def test_householder_panel_matches_lapack(rng):
-    from dmd_era5_tpu.ops.qr_panel import householder_panel
-    from dmd_era5_tpu.ops.tsqr import qr_positive
+def test_householder_leaf_matches_lapack(rng):
+    """The TSQR "householder" leaf (XLA QR: cuSOLVER geqrf on the GPU)."""
+    from dmd_era5_tpu.ops.tsqr import _local_factor
 
     a = rng.standard_normal((512, 32)).astype(np.float32)
-    q, r = householder_panel(jnp.asarray(a))
-    q_ref, r_ref = qr_positive(jnp.asarray(a))
-    np.testing.assert_allclose(np.asarray(r), np.asarray(r_ref), atol=2e-3)
-    np.testing.assert_allclose(np.asarray(q), np.asarray(q_ref), atol=2e-3)
+    q, r = _local_factor(jnp.asarray(a), "householder")
+    q_ref, r_ref = np.linalg.qr(a.astype(np.float64))
+    signs = np.sign(np.diag(r_ref))
+    q_ref, r_ref = q_ref * signs, r_ref * signs[:, None]
+    np.testing.assert_allclose(np.asarray(r), r_ref, atol=2e-3)
+    np.testing.assert_allclose(np.asarray(q), q_ref, atol=2e-3)
     qtq = np.asarray(q).T @ np.asarray(q)
     np.testing.assert_allclose(qtq, np.eye(32), atol=1e-4)
+    assert np.all(np.diag(np.asarray(r)) >= 0)
 
 
-def test_householder_panel_ill_conditioned(rng):
+def test_householder_leaf_ill_conditioned(rng):
     """Householder stays stable where single-pass CholQR would not."""
-    from dmd_era5_tpu.ops.qr_panel import householder_panel
+    from dmd_era5_tpu.ops.tsqr import _local_factor
 
     a = rng.standard_normal((256, 16)).astype(np.float32)
     a[:, 0] *= 1e5
     a[:, 1] = a[:, 0] + 1e-2 * rng.standard_normal(256).astype(np.float32)
-    q, r = householder_panel(jnp.asarray(a))
+    q, r = _local_factor(jnp.asarray(a), "householder")
     qtq = np.asarray(q).T @ np.asarray(q)
     np.testing.assert_allclose(qtq, np.eye(16), atol=1e-3)
     np.testing.assert_allclose(
@@ -270,77 +350,12 @@ def test_householder_panel_ill_conditioned(rng):
     )
 
 
-def test_project_kernel(rng):
-    from dmd_era5_tpu.ops.matmul import project
+def test_local_factor_rejects_unknown_method(rng):
+    from dmd_era5_tpu.ops.tsqr import _local_factor, default_qr_method
 
-    m, t, r = 2048, 256, 64
-    x = rng.standard_normal((m, t)).astype(np.float32)
-    y = rng.standard_normal((m, r)).astype(np.float32)
-    c = project(jnp.asarray(x), jnp.asarray(y))
-    np.testing.assert_allclose(np.asarray(c), y.T @ x, rtol=1e-4, atol=1e-2)
-
-
-def test_project_kernel_tiled_time(rng):
-    from dmd_era5_tpu.ops.matmul import project
-
-    m, t, r = 1024, 512, 64
-    x = rng.standard_normal((m, t)).astype(np.float32)
-    y = rng.standard_normal((m, r)).astype(np.float32)
-    c = project(jnp.asarray(x), jnp.asarray(y), block_m=512, block_t=128)
-    np.testing.assert_allclose(np.asarray(c), y.T @ x, rtol=1e-4, atol=1e-2)
-
-
-def test_sketch_center_gram_row_padding(rng):
-    """Row counts that don't divide the block size are zero-padded
-    in-kernel (zero rows are neutral through the fused algebra) and
-    sliced back — e.g. the per-(variable, level) ensemble fits whose
-    S = nlat * nlon is rarely a multiple of 512."""
-    from dmd_era5_tpu.ops.matmul import project, sketch_center_gram
-
-    m, t, r = 648, 24, 8
-    x = rng.standard_normal((m, t)).astype(np.float32)
-    w = rng.standard_normal((t, r)).astype(np.float32)
-    yc, s1, s2, g = sketch_center_gram(jnp.asarray(x), jnp.asarray(w))
-    xc = x - x.mean(axis=1, keepdims=True)
-    np.testing.assert_allclose(np.asarray(yc), xc @ w, atol=1e-3)
-    np.testing.assert_allclose(np.asarray(s1), x.sum(axis=1), rtol=1e-5, atol=1e-4)
-    np.testing.assert_allclose(np.asarray(g), (xc @ w).T @ (xc @ w), rtol=1e-4, atol=1e-2)
-    c = project(jnp.asarray(x), yc)
-    np.testing.assert_allclose(np.asarray(c), np.asarray(yc).T @ x, rtol=1e-4, atol=1e-2)
-
-
-def test_sketch_center_gram_kernel(rng):
-    from dmd_era5_tpu.ops.matmul import sketch_center_gram
-
-    m, t, r = 1024, 256, 128
-    x = rng.standard_normal((m, t)).astype(np.float32)
-    w = rng.standard_normal((t, r)).astype(np.float32)
-    yc, s1, s2, g = sketch_center_gram(jnp.asarray(x), jnp.asarray(w))
-    xc = x - x.mean(axis=1, keepdims=True)
-    np.testing.assert_allclose(np.asarray(yc), xc @ w, rtol=1e-4, atol=1e-2)
-    np.testing.assert_allclose(np.asarray(s1), x.sum(axis=1), rtol=1e-4, atol=1e-2)
-    np.testing.assert_allclose(
-        np.asarray(s2), (x * x).sum(axis=1), rtol=1e-4, atol=1e-2
-    )
-    np.testing.assert_allclose(
-        np.asarray(g), (xc @ w).T @ (xc @ w), rtol=1e-4, atol=0.5
-    )
-
-
-def test_sketch_center_gram_tiled_time(rng):
-    from dmd_era5_tpu.ops.matmul import sketch_center_gram
-
-    m, t, r = 512, 512, 64
-    x = rng.standard_normal((m, t)).astype(np.float32)
-    w = rng.standard_normal((t, r)).astype(np.float32)
-    yc, s1, s2, g = sketch_center_gram(
-        jnp.asarray(x), jnp.asarray(w), block_m=256, block_k=128
-    )
-    xc = x - x.mean(axis=1, keepdims=True)
-    np.testing.assert_allclose(np.asarray(yc), xc @ w, rtol=1e-4, atol=1e-2)
-    np.testing.assert_allclose(
-        np.asarray(g), (xc @ w).T @ (xc @ w), rtol=1e-4, atol=0.5
-    )
+    assert default_qr_method() in ("householder", "cholqr2", "cholqr2_split")
+    with pytest.raises(ValueError, match="qr_method"):
+        _local_factor(jnp.ones((8, 2)), "xla")
 
 
 @pytest.mark.parametrize("d", [1, 3])
@@ -494,7 +509,7 @@ def test_hankel_exact_svd_sharded_matches_single(rng):
 
 
 def test_cholqr2_split_accuracy():
-    """The split-precision TPU leaf: orthogonality and factorization
+    """The split-Gram CholQR2 leaf: orthogonality and factorization
     residual at ~1e-6, R upper-triangular with positive diagonal."""
     import numpy as np
 

@@ -179,7 +179,7 @@ def test_streamed_bf16_blocks(tmp_path, rng):
 
 
 def test_streamed_u_wire_dtype_and_u_out(tmp_path, rng):
-    """The U stream-back options (VERDICT r4 item 9): bf16 wire on
+    """The U stream-back options (review r4 item 9): bf16 wire on
     bf16-packed files by default, forced f32 wire on request, and
     blockwise writes into a caller-supplied ``u_out`` buffer (memmap /
     h5py dataset) with no (S, k) host allocation inside."""
@@ -246,9 +246,8 @@ def test_streamed_col_limit_matches_sliced_matrix(tmp_path, rng):
 
 def test_streamed_exact_gram_svd_matches_numpy(tmp_path, rng):
     """The 2-pass out-of-core exact route == numpy truncated SVD (f64
-    Gram accumulation makes it deterministic and oracle-grade; built
-    because multi-pass schedules cannot run on transfer-leaking
-    backends — see the function docstring)."""
+    Gram accumulation makes it deterministic and oracle-grade; two
+    passes where the randomized schedule needs n_iter + 2)."""
     from dmd_era5_tpu.pipeline.streamed_fit import streamed_exact_gram_svd
     from dmd_era5_tpu.snapmat.loader import save_packed_matrix
 

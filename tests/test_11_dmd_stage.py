@@ -218,8 +218,8 @@ def test_dmd_stage_multiresolution(dmd_config):
 def test_dmd_corrupt_cached_artifact_is_recomputed(dmd_config):
     """A cached fit with non-finite amplitudes must not be served.
 
-    Regression: an artifact written by a build with the TPU bf16-Gram
-    lstsq bug carried nan amplitudes; the config matched, so the stage
+    Regression: an artifact written by a build with a bf16-Gram lstsq
+    bug carried nan amplitudes; the config matched, so the stage
     returned it forever.  check_dmd_results now also validates
     finiteness (as does check_svd_results for singular values).
     """
@@ -300,7 +300,7 @@ def _stage_slice_dynamic(cfg, n_lat=36, n_lon=72) -> None:
 
 
 def test_dmd_forecast_holdout_scores_beat_persistence(dmd_config):
-    """VERDICT r3 item 2: fit on train, score on withheld truth.
+    """review r3 item 2: fit on train, score on withheld truth.
 
     The stage must stamp per-lead latitude-weighted RMSE/ACC/bias into
     the artifact attrs, and on coherent wave dynamics the DMD forecast
@@ -391,7 +391,7 @@ def _stage_slice_forced(cfg) -> np.ndarray:
 
 
 def test_dmd_stage_dmdc(dmd_config):
-    """VERDICT r3 item 6: python -m ...era5_dmd produces a DMDc
+    """review r3 item 6: python -m ...era5_dmd produces a DMDc
     artifact when control_input is configured."""
     cfg = dict(
         dmd_config,
@@ -484,7 +484,7 @@ def test_dmd_stage_multiresolution_refit(dmd_config):
 
 
 def test_mr_refit_streams_without_data_matrix(dmd_config):
-    """mr_refit_rank WITHOUT save_data_matrix (VERDICT r4 item 7): the
+    """mr_refit_rank WITHOUT save_data_matrix (review r4 item 7): the
     stage streams the raw refit out-of-core from the slice artifact —
     one Gram pass, no X in the SVD artifact, spectra matching the
     in-memory refit route."""

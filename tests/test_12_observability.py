@@ -30,15 +30,38 @@ def test_measure_returns_positive_time():
     assert dt > 0
 
 
+class _Device:
+    """Stand-in for a jax.Device: only ``device_kind`` is read."""
+
+    def __init__(self, kind):
+        self.device_kind = kind
+
+
+H100 = _Device("NVIDIA H100 80GB HBM3")
+
+
 def test_device_peaks_known():
-    peaks = device_peaks()
-    assert peaks.bf16_flops > 0 and peaks.hbm_bw > 0
+    peaks = device_peaks(H100)
+    assert peaks.bf16_flops == 989e12 and peaks.hbm_bw == 3.35e12
+    assert peaks.f32_flops == 67e12
+
+
+@pytest.mark.parametrize("kind", ["cpu", "NVIDIA H100 PCIe", None])
+def test_device_peaks_unknown_kind_raises(kind):
+    with pytest.raises(KeyError, match="no published peaks"):
+        device_peaks(_Device(kind))
+
+
+def test_device_peaks_cpu_process_raises():
+    """The CPU is not an accelerator with published peaks: no fallback."""
+    with pytest.raises(KeyError):
+        device_peaks()
 
 
 def test_roofline_classification():
-    out = roofline(flops=1e12, bytes_accessed=1e6, seconds=1.0)
+    out = roofline(flops=1e12, bytes_accessed=1e6, seconds=1.0, device=H100)
     assert out["bound"] == "compute"
-    out = roofline(flops=1e6, bytes_accessed=1e12, seconds=1.0)
+    out = roofline(flops=1e6, bytes_accessed=1e12, seconds=1.0, device=H100)
     assert out["bound"] == "memory"
 
 

@@ -79,7 +79,7 @@ def test_update_svd_results_extends_time(base_config):
 
 
 def test_incremental_stage_extends_artifact(base_config):
-    """Config-driven incremental stage (VERDICT r1 item 9): fit day 1,
+    """Config-driven incremental stage (review r1 item 9): fit day 1,
     extend with day 2 via pipeline.era5_svd_update.main, factors agree
     with the from-scratch full-window fit within incremental-SVD
     (truncated-history) tolerance."""

@@ -1,7 +1,7 @@
 """Multi-process distributed execution (the multi-host pattern).
 
 Runs the 2-process gloo-backed distributed SVD demo in subprocesses —
-the TPU-build analogue of the reference's containerized tier-2 tests
+the analogue of the reference's containerized tier-2 tests
 (SURVEY.md section 4: "multi-process tests on a simulated mesh").
 """
 
@@ -52,5 +52,5 @@ def test_two_process_distributed_svd():
 def test_two_process_era5_svd_stage():
     """The config-driven era5_svd STAGE across a 2-process cluster:
     per-process hyperslab reads (load_row_sharded), global-mesh TSQR,
-    factors equal to the host oracle (VERDICT r1 item 5)."""
+    factors equal to the host oracle (review r1 item 5)."""
     _run_demo("multiprocess_stage_demo.py", "multiprocess stage demo OK")

@@ -63,7 +63,7 @@ def test_onepass_reconstruction_within_constant_of_optimal(rng):
     ],
 )
 def test_onepass_error_estimate_brackets_truth(rng, decay, noise, k):
-    """The posterior tail_rel_err_est (VERDICT r4 item 6) must bracket
+    """The posterior tail_rel_err_est (review r4 item 6) must bracket
     the true rank-k Frobenius reconstruction error on known-spectrum
     matrices: an upper-bound-flavored estimate within a small constant
     (sketch concentration), never an underestimate by more than ~30%."""
@@ -89,7 +89,7 @@ def test_onepass_error_estimate_brackets_truth(rng, decay, noise, k):
 def test_streamed_onepass_stamps_estimate_and_warns(tmp_path, rng, caplog):
     """svd_backend=onepass must surface the accuracy trade: the info
     dict carries onepass_tail_rel_err_est and a warning is logged when
-    the estimate exceeds tolerance (VERDICT r4: 'a user selecting
+    the estimate exceeds tolerance (review r4: 'a user selecting
     svd_backend=onepass gets an artifact whose tail components are
     garbage with no error estimate and no warning')."""
     import logging

@@ -144,7 +144,7 @@ def test_as_of_time_travel(dl_config, monkeypatch):
             parsed, data_type="era5_slice",
             as_of="1990-01-01T00:00:00+00:00",
         )
-    # NAIVE timestamps are treated as UTC (ADVICE r4): v1's stamp with
+    # NAIVE timestamps are treated as UTC (review r4): v1's stamp with
     # the offset stripped must behave identically to the aware form
     from datetime import datetime
 

@@ -396,7 +396,7 @@ class TestEra5ZarrIngest:
         )
 
 
-# ---- vendored ARCO-ERA5 format fixtures (VERDICT r4 item 5) ---------------
+# ---- vendored ARCO-ERA5 format fixtures (review r4 item 5) ---------------
 # Committed bytes generated by tests/fixtures/make_arco_fixture.py with an
 # INDEPENDENT blosc encoder — no shared code with the reader or the repo's
 # own write_zarr_array, so these fail if the reader's assumptions diverge

@@ -188,9 +188,8 @@ class TestBackendParity:
         """svd_type=standard + svd_backend=streamed: the 2-pass
         out-of-core exact Gram route (streamed_exact_gram_svd) —
         deterministic, so it must match the inmem exact factorization
-        tightly.  Built because multi-pass streamed schedules cannot
-        run on transfer-leaking backends (round-5 finding, see
-        BASELINE.md)."""
+        tightly: two disk passes where the randomized schedule needs
+        n_iter + 2."""
         base = _config("streamed", svd_type="standard")
         r_in = _run({**base, "svd_backend": "inmem"})
         r_g = era5_svd.main(
@@ -291,7 +290,7 @@ class TestBackendResolution:
 
     def test_explicit_grid2d_with_delay_routes_hankel(self, caplog):
         """Explicit svd_backend=grid2d with d > 1 must NOT host-embed:
-        it reroutes to the Hankel grid path (VERDICT r3 weak #3 — the
+        it reroutes to the Hankel grid path (review r3 weak #3 — the
         d-fold H_d(X) RAM blowup of reference slice_tools.py:207-211)."""
         from dmd_era5_tpu.parallel import make_mesh
 
@@ -371,6 +370,11 @@ class TestAutoScaleRouting:
         # one week of 0.25-degree at 15 fields
         parsed["_matrix_rows"] = 721 * 1440 * 15
         parsed["_matrix_cols"] = 168
+        # the CPU reports no memory limit: no budget, stays in memory
+        monkeypatch.delenv("DMD_ERA5_TPU_HBM_BUDGET_GB", raising=False)
+        assert era5_svd.resolve_svd_backend(parsed, mesh) == "inmem"
+        # a 12 GB device cannot hold it
+        monkeypatch.setenv("DMD_ERA5_TPU_HBM_BUDGET_GB", "12")
         assert era5_svd.resolve_svd_backend(parsed, mesh) == "streamed"
         # small matrices stay in memory
         parsed["_matrix_rows"] = 1 << 19

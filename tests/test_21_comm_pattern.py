@@ -9,7 +9,7 @@ host->pod efficiency on hardware.  These tests compile the production
 steps over the 8-device mesh and assert every collective moves only
 small replicated factors (r x r Grams, r x T projections, T x T
 R-factors), never S-sized operands.  A regression that re-gathers rows
-(the O(P) patterns VERDICT r1 flagged) fails here before it ever costs
+(the O(P) patterns review r1 flagged) fails here before it ever costs
 pod time.
 """
 

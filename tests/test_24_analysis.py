@@ -200,7 +200,7 @@ class TestVerification:
 
 
 class TestStreamedForecast:
-    """Out-of-core rollout (VERDICT r4 item 2): the blockwise path must
+    """Out-of-core rollout (review r4 item 2): the blockwise path must
     reproduce the dense rollout + undo_preprocessing + one-shot scores
     chain, with no (S*d, T') materialization."""
 

@@ -1,9 +1,9 @@
 """Unit tests for the small-matrix linalg primitives the hot paths use.
 
-These are the TPU-lowering workarounds (``utils/linalg.py``): GEMM-based
-SPD solves replacing LU/TriangularSolve sweeps, Gram-whitening
-re-orthonormalization replacing QR in power-iteration intermediates,
-and the precision-parameterized Pallas Gram kernel.
+The GEMM-based helpers of ``utils/linalg.py`` (SPD solves replacing
+LU/TriangularSolve sweeps, Gram-whitening re-orthonormalization
+replacing QR in power-iteration intermediates) and the
+precision-parameterized Gram product (``ops/qr_panel.py``).
 """
 
 from __future__ import annotations
@@ -97,8 +97,8 @@ def test_pallas_gram_precision_option(rng, precision):
     )
     g = np.asarray(gram(jnp.asarray(a), precision=p))
     g_ref = (a.astype(np.float64).T @ a.astype(np.float64)).astype(np.float32)
-    # the split kernel's hi/lo arithmetic runs as written in interpret
-    # mode, so its ~1e-6 error model is exercised here on CPU too
+    # the split Gram's hi/lo arithmetic runs as written on the CPU too,
+    # so its ~1e-6 error model is exercised here
     tol = 1e-5 if precision == "HIGHEST" else 3e-5
     assert np.allclose(g, g_ref, rtol=0, atol=tol * np.abs(g_ref).max())
 

@@ -148,7 +148,7 @@ def test_time_truncation():
 
 
 def test_from_svd_subspace_bias_vs_raw_oracle():
-    """Quantify the mrdmd_from_svd approximation (VERDICT r3 item 4).
+    """Quantify the mrdmd_from_svd approximation (review r3 item 4).
 
     Data = strong global slow dynamics (rank 4) + a WEAK brief transient
     whose spatial pattern is orthogonal to the global top-4 POD modes.
@@ -212,7 +212,7 @@ def test_from_svd_subspace_bias_vs_raw_oracle():
 
 
 def test_gram_route_matches_device_route():
-    """fit_mrdmd_gram(X^T X) == fit_mrdmd(X) (VERDICT r4 item 7): the
+    """fit_mrdmd_gram(X^T X) == fit_mrdmd(X) (review r4 item 7): the
     whole hierarchy from ONE T x T Gram — spectra, masks, amplitudes,
     residual norm — no S-sized array anywhere in the fit."""
     from dmd_era5_tpu.models.mrdmd import fit_mrdmd_gram

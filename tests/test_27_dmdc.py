@@ -102,7 +102,7 @@ def test_beats_uncontrolled_dmd_on_forced_data():
 
 
 def test_control_recovery_under_magnitude_imbalance():
-    """Unbalanced units (ADVICE r4): state magnitudes 1e4x the control
+    """Unbalanced units (review r4): state magnitudes 1e4x the control
     magnitudes must not silently zero the control subspace — the stack
     is row-balanced internally and B_red comes back in raw input units."""
     x, u_seq, a0, b0, u_true = _forced_system()

